@@ -1,0 +1,210 @@
+"""Disparity-sweep stereo warp (port of ``ops/warp_pallas.py`` B1).
+
+:func:`disparity_sweep` launches the hand-written CUDA kernel
+``csrc/disparity_sweep.cu`` on CUDA tensors and runs
+:func:`disparity_sweep_plain`, the same function as a per-plane PyTorch
+loop, on CPU tensors. There is no fallback between the two: a CUDA tensor
+launches the kernel or raises.
+
+Every argument carries a leading batch axis (frames x eyes); the plane
+vectors and the activity bitmap are per batch element.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+INF_DEPTH = 3.0e38
+LANE = 128
+BLOCK_ROWS = 64   # the JAX kernel's row tile; the activity bitmap's unit
+MARGIN = 4        # planes of dilation in the bitmap: tolerance + lerp
+
+# kernel launches by wrapper name; each wrapper adds one per launch
+LAUNCHES = {"disparity_sweep": 0}
+
+
+def pad_widths(width, max_disparity):
+    """(pad_left, pad_right) of the padded source rows."""
+    pad_left = ((max_disparity + LANE - 1) // LANE) * LANE
+    return pad_left, pad_left + 2 * LANE
+
+
+def plane_activity(depth, inv_near, d_inv, num_planes):
+    """Per-(row-tile, plane) activity bitmap for the sweep.
+
+    depth (B, H, W); inv_near, d_inv (B,). A plane is active in a
+    BLOCK_ROWS-row tile when some valid source depth of the tile buckets
+    into it (uniform inverse depth bins), dilated by MARGIN planes.
+    -> (B, ntiles, P) int32, equal to the JAX package's bit-packed
+    formulation.
+    """
+    b, h, w = depth.shape
+    ntiles = -(-h // BLOCK_ROWS)
+    d = torch.nn.functional.pad(depth, (0, 0, 0, ntiles * BLOCK_ROWS - h))
+    valid = d > 1e-3
+    inv = torch.where(valid, 1.0 / torch.clamp(d, min=1e-6),
+                      torch.zeros_like(d))
+    q = torch.round((inv_near[:, None, None] - inv) / d_inv[:, None, None])
+    q = torch.where(valid, q, torch.zeros_like(q))
+    bins = torch.clamp(q, 0, num_planes - 1).to(torch.int64)
+    tile = torch.arange(ntiles * BLOCK_ROWS, device=depth.device) \
+        // BLOCK_ROWS
+    batch = torch.arange(b, device=depth.device)
+    slot = ((batch[:, None, None] * ntiles + tile[None, :, None])
+            * num_planes + bins)
+    counts = torch.bincount(slot[valid], minlength=b * ntiles * num_planes)
+    act = (counts > 0).to(torch.int32).reshape(b, ntiles, num_planes)
+    out = act.clone()
+    for s in range(1, MARGIN + 1):
+        out[..., :-s] |= act[..., s:]
+        out[..., s:] |= act[..., :-s]
+    return out
+
+
+def _check_args(depth_pad, color_pad, disp_int, disp_frac, plane_z,
+                plane_tol, num_planes, active):
+    if depth_pad.ndim != 3 or color_pad.ndim != 4:
+        raise ValueError("depth_pad must be (B, H, WP) and color_pad "
+                         "(B, C, H, WP)")
+    b, h, wp = depth_pad.shape
+    if color_pad.shape[0] != b or color_pad.shape[2:] != (h, wp):
+        raise ValueError(f"color_pad {tuple(color_pad.shape)} does not "
+                         f"match depth_pad {tuple(depth_pad.shape)}")
+    ntiles = -(-h // BLOCK_ROWS)
+    want = {"disp_int": (disp_int, torch.int32, (b, num_planes)),
+            "disp_frac": (disp_frac, torch.float32, (b, num_planes)),
+            "plane_z": (plane_z, torch.float32, (b, num_planes)),
+            "plane_tol": (plane_tol, torch.float32, (b, num_planes)),
+            "active": (active, torch.int32, (b, ntiles, num_planes)),
+            "depth_pad": (depth_pad, torch.float32, (b, h, wp)),
+            "color_pad": (color_pad, torch.float32, tuple(color_pad.shape))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return b, h, wp, color_pad.shape[1], ntiles
+
+
+def disparity_sweep_plain(depth_pad, color_pad, disp_int, disp_frac, plane_z,
+                          plane_tol, num_planes, pad_left, active=None):
+    """The sweep as a per-plane PyTorch loop (the kernel's plain version).
+
+    Same arguments and results as :func:`disparity_sweep`; every blend
+    (:func:`blend`) and test is the kernel's arithmetic in separate
+    elementwise ops, so on the card it equals the kernel bit for bit."""
+    b, h, wp = depth_pad.shape
+    c = color_pad.shape[1]
+    w = wp - (2 * pad_left + 2 * LANE)
+    dev = depth_pad.device
+    if active is None:
+        active = torch.ones((b, -(-h // BLOCK_ROWS), num_planes),
+                            dtype=torch.int32, device=dev)
+    row_tile = torch.arange(h, device=dev) // BLOCK_ROWS
+    x = torch.arange(w, device=dev)
+    best_z = torch.full((b, h, w), INF_DEPTH, dtype=torch.float32,
+                        device=dev)
+    color = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
+    found = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
+
+    def sample(src, idx):
+        """src (..., WP) read at idx (B, W), zero outside [0, WP)."""
+        inside = (idx >= 0) & (idx < wp)
+        idx = idx.clamp(0, wp - 1)
+        shape = src.shape[:-1] + (w,)
+        view = (b,) + (1,) * (src.ndim - 2) + (w,)
+        val = torch.gather(src, -1, idx.reshape(view).expand(shape))
+        return torch.where(inside.reshape(view), val, torch.zeros_like(val))
+
+    for p in range(num_planes):
+        s = x[None, :] + (disp_int[:, p].to(torch.int64) + pad_left)[:, None]
+        f = disp_frac[:, p, None, None]
+        d = blend(sample(depth_pad, s), sample(depth_pad, s + 1), f)
+        act = (active[:, row_tile, p] > 0)[:, :, None]
+        ok = ((torch.abs(d - plane_z[:, p, None, None])
+               < plane_tol[:, p, None, None])
+              & (d > 1e-3) & ~found & act)
+        best_z = torch.where(ok, d, best_z)
+        pay = blend(sample(color_pad, s), sample(color_pad, s + 1),
+                    f[:, None]).permute(0, 2, 3, 1)
+        color = torch.where(ok[..., None], pay, color)
+        found = found | ok
+    return best_z, color, found
+
+
+def blend(a, b, f):
+    """(1 - f) * a + f * b, float32, rounded as one fused multiply-add
+    fma(1 - f, a, f * b) -- the rounding XLA gives the JAX kernel's lerp.
+    The product (1 - f) * a of two float32 values is exact in float64, so
+    the float64 sum rounded to float32 is the fused result (barring double
+    rounding, at most once in ~2^29). The CUDA kernel evaluates the same
+    float64 expression, so the two agree bit for bit."""
+    return ((1.0 - f).double() * a.double() + (f * b).double()).float()
+
+
+def disparity_sweep(depth_pad, color_pad, disp_int, disp_frac, plane_z,
+                    plane_tol, num_planes, pad_left, active=None):
+    """Run the plane sweep.
+
+    depth_pad: (B, H, W + pads) f32 rotation-neutralized source depth,
+               zero-padded (pad_left left, pad_left + 256 right).
+    color_pad: (B, C, H, W + pads) f32 channel-planar padded payload.
+    disp_int/disp_frac: (B, P) i32/f32 per-plane disparity.
+    plane_z/plane_tol: (B, P) f32 plane depth and tolerance.
+    active: optional (B, ntiles, P) int32 from :func:`plane_activity`.
+
+    Returns (best_z (B, H, W), color (B, H, W, C), found (B, H, W) bool).
+    CPU tensors run :func:`disparity_sweep_plain`; CUDA tensors launch
+    the kernel (and count the launch in ``LAUNCHES``).
+    """
+    tensors = [depth_pad, color_pad, disp_int, disp_frac, plane_z,
+               plane_tol] + ([active] if active is not None else [])
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"arguments on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return disparity_sweep_plain(depth_pad, color_pad, disp_int,
+                                     disp_frac, plane_z, plane_tol,
+                                     num_planes, pad_left, active)
+    if dev.type != "cuda":
+        raise ValueError(f"disparity_sweep runs on cuda or cpu, not {dev}")
+    if active is None:
+        active = torch.ones((depth_pad.shape[0],
+                             -(-depth_pad.shape[1] // BLOCK_ROWS),
+                             num_planes), dtype=torch.int32, device=dev)
+    b, h, wp, c, ntiles = _check_args(depth_pad, color_pad, disp_int,
+                                      disp_frac, plane_z, plane_tol,
+                                      num_planes, active)
+    w = wp - (2 * pad_left + 2 * LANE)
+    if w <= 0:
+        raise ValueError(f"padded width {wp} leaves no image columns")
+    args = [t.contiguous() for t in (depth_pad, color_pad, disp_int,
+                                     disp_frac, plane_z, plane_tol, active)]
+    out_z = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    out_color = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    found = torch.empty((b, h, w), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _library().mdvt_disparity_sweep(
+            *[t.data_ptr() for t in args], out_z.data_ptr(),
+            out_color.data_ptr(), found.data_ptr(), b, h, w, wp, c,
+            num_planes, pad_left, ntiles, BLOCK_ROWS, stream)
+    if rc != 0:
+        raise RuntimeError(f"disparity_sweep kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["disparity_sweep"] += 1
+    return out_z, out_color, found
+
+
+def _library():
+    from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("disparity_sweep")
+    fn = lib.mdvt_disparity_sweep
+    if fn.restype is not ctypes.c_int or not fn.argtypes:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+    return lib

@@ -1,0 +1,104 @@
+"""The port stands alone: no module of it (nor chip_smoke.py) imports JAX,
+Flax or the JAX package; it imports and runs its in-memory path with
+those (and OpenCV) blocked; and it runs on the CPU only when asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from metric_depth_video_toolbox_tpu_torch.utils import device as devmod
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "metric_depth_video_toolbox_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "metric_depth_video_toolbox_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+BLOCKED = """
+import sys
+for name in ("jax", "jaxlib", "flax", "metric_depth_video_toolbox_tpu",
+             "cv2"):
+    sys.modules[name] = None
+import pkgutil, importlib, numpy as np, torch
+import metric_depth_video_toolbox_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from metric_depth_video_toolbox_tpu_torch.ops import codec
+from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
+d = torch.full((1, 32, 64), 5.0); d[:, 8:24, 16:40] = 2.0
+rgb = codec.encode_depth_frame(d, 100.0)
+col = torch.full((1, 32, 64, 3), 128, dtype=torch.uint8)
+from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
+k = geo.camera_matrix_from_fov(64, 32, xfov_deg=60.0)[None]
+cfg = stereo.StereoConfig(width=64, height=32, make_infill_mask=True)
+out = stereo.stereo_step(cfg, rgb, col, k, torch.eye(4)[None],
+                         torch.full((1,), 2.0), torch.ones(1))
+assert out["image"].shape == (1, 32, 128, 3)
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("OK")
+"""
+
+
+def test_imports_and_runs_with_jax_and_cv2_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", BLOCKED], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("MDVT_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        devmod.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        devmod.resolve_device("cuda")
+    assert devmod.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    assert devmod.resolve_device() == torch.device("cpu")
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    """chip_smoke.py in a directory without the package (or without a
+    CUDA card) exits non-zero and prints no result line."""
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((REPO / "chip_smoke.py").read_text(encoding="utf-8"),
+                      encoding="utf-8")
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
