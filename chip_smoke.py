@@ -7,23 +7,41 @@ Run from the repository root on a machine with a CUDA card. Phases, each
 of which fails the run on error:
 
   1. build      nvcc builds every kernel under
-                metric_depth_video_toolbox_tpu_torch/csrc.
-  2. kernels    each kernel's wrapper, on the main path's own inputs at
-                1080p, against its plain PyTorch version: bit-equal.
+                metric_depth_video_toolbox_tpu_torch/csrc, one process per
+                source, all started together.
+  2. kernels    each kernel's wrapper against its plain PyTorch version
+                on the card: the disparity sweep on the stereo path's own
+                1080p inputs (bit-equal); block-causal attention at the
+                infill phase's shape (1, 12, 18720, 128), 4 causal blocks,
+                in bfloat16 and float32 (within the tolerance of
+                ops/blockcausal.py::error_ratio), timed beside its plain
+                version and scaled_dot_product_attention with the boolean
+                block-causal mask; and at the production chunk's shape
+                (1, 12, 88920, 128), 19 causal blocks, bfloat16.
   3. depth      the VDA engine (ViT-S, 518, bfloat16, seeded weights) on
                 a synthetic 40-frame 1080p clip: two windows, stitched,
                 made metric against the metric anchor.
   4. stereo     the movie-configuration stereo step (edge cull, edge
-                anchors, infill mask, convergence), batch 8 at 1080p, on
-                the encoded phase-3 depth and on a synthetic scene.
-                Phases 3-4 are the main path: the kernel launch counts
-                are zeroed before phase 3 and read after phase 4.
-  5. reference  the same engine and stereo step at a small size in
-                float32 on the card and on the CPU: they must agree.
-  6. files      depth -> stereo file to file through cli/main.py, where
-                OpenCV is installed (else one line says it was skipped).
-  7. profile    the stereo step and the depth engine once each under
-                torch.profiler: device time, host-copy time, top kernels.
+                anchors, infill mask, convergence), batch 8 at 1080p: all
+                40 frames of the encoded phase-3 depth (kept as the infill
+                input) and a synthetic scene. Phases 3-4 are the first
+                main path: the launch counts are zeroed before phase 3 and
+                read after phase 4.
+  5. infill     the second main path: the InSpatio-World causal infill
+                (WAN_1_3B, bfloat16, seeded weights, 480x832 working size,
+                the inspatio_world preset's flags with chunk 40) on the
+                phase-4 SBS frames and infill mask, with the synthetic
+                clip as the source video; counts zeroed before, read
+                after (960 block-causal launches: 2 eyes x 16 DiT forwards
+                x 30 layers).
+  6. reference  the depth engine, the stereo step and a narrow Wan infill
+                chunk at a small size in float32 on the card and on the
+                CPU: they must agree.
+  7. files      depth -> stereo -> infill (--model_scale tiny) file to
+                file through cli/main.py, where OpenCV is installed (else
+                one line says it was skipped).
+  8. profile    the stereo step, the depth engine and one eye's infill
+                chunk under torch.profiler: device time, top kernels.
 
 It then prints a JSON line of the kernels' launches, times and bounds,
 the card's name and power limit, and last the device JSON line. Exits
@@ -48,6 +66,11 @@ BATCH = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
 F64_OPS_PER_S = 34e12          # H100 SXM float64 rate outside tensor cores
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+WAN_N, WAN_BLOCKS = 18720, 4   # the infill phase's tokens and causal blocks
+# the inspatio_world preset's 225-frame chunk: 57 latent frames of 30 x 52
+PROD_N, PROD_BLOCKS = 88920, 19
+INFILL_FRAMES = 40
 # one (pixel, plane) test of the sweep: 1 - f, f * b, d - z, |.|, <, > in
 # float32; (1 - f) * a + f * b in float64 (the fused lerp's rounding)
 F32_PER_TEST, F64_PER_TEST = 6, 2
@@ -250,6 +273,102 @@ def phase_kernels(gen, dev):
     return results
 
 
+def attention_work(ids, b, h, d, elem_bytes):
+    """(bytes, bf16 tensor-core operations) block-causal attention needs
+    on these ids: q, k, v read once and out written once; 4 D operations
+    (QK^T and PV, multiply and add) per visible (query, key) pair."""
+    import torch
+
+    visible = int(torch.searchsorted(ids, ids, right=True).sum())
+    n = ids.numel()
+    return 4 * b * h * n * d * elem_bytes + 4 * n, 4 * d * b * h * visible
+
+
+def attention_bound(ids, h, d):
+    """-> (bound ms, bound by, bytes, operations) of bf16 B3 on these ids."""
+    nbytes, ops = attention_work(ids, 1, h, d, 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_TC_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def check_attention(q, k, v, ids, sm, what):
+    """Kernel vs the plain version in float32 on the same inputs, held to
+    ``error_ratio`` <= 1; -> {max_abs_err, error_ratio}."""
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
+
+    out = bcm.block_causal_attention(q, k, v, ids, sm)
+    ref = bcm.block_causal_attention_plain(q.float(), k.float(), v.float(),
+                                           ids, sm)
+    torch.cuda.synchronize()
+    r = {"max_abs_err": float((out.float() - ref).abs().max()),
+         "error_ratio": bcm.error_ratio(out, ref)}
+    if not r["error_ratio"] <= 1 or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"block_causal_attention {what}: kernel vs plain "
+                           f"max abs err {r['max_abs_err']}, error ratio "
+                           f"{r['error_ratio']} (limit 1)")
+    return r
+
+
+def phase_kernels_attention(gen, dev):
+    """B3 against its plain version in float32 on the same inputs: at the
+    infill phase's shape in bfloat16 (the infill's type) and float32,
+    timed beside the plain version and SDPA with the boolean (N, N)
+    block-causal mask; and at the production chunk's shape in bfloat16."""
+    import torch
+    import torch.nn.functional as F
+
+    from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
+
+    d, h = 128, 12
+    sm = d ** -0.5
+    res = {}
+    for n, blocks, dtypes in ((WAN_N, WAN_BLOCKS,
+                               (torch.bfloat16, torch.float32)),
+                              (PROD_N, PROD_BLOCKS, (torch.bfloat16,))):
+        ids = (torch.arange(n, device=dev) // (n // blocks)).to(torch.int32)
+        for dtype in dtypes:
+            name = str(dtype).split(".")[-1]
+            tag = name if n == WAN_N else "production"
+            q, k, v = (torch.randn(1, h, n, d, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            r = check_attention(q, k, v, ids, sm, f"{tag} (1, {h}, {n}, "
+                                   f"{d}) {name}")
+            msg = ""
+            if dtype == torch.bfloat16:
+                r["ms"] = gpu_ms(lambda: bcm.block_causal_attention(
+                    q, k, v, ids, sm), 10 if n == WAN_N else 3)
+                r["plain_ms"] = gpu_ms(
+                    lambda: bcm.block_causal_attention_plain(
+                        q, k, v, ids, sm), 2 if n == WAN_N else 1)
+                r["bound_ms"], r["bound_by"], r["bytes"], r["ops"] = \
+                    attention_bound(ids, h, d)
+                if n == WAN_N:
+                    # the (N, N) mask of the production length takes 7.9 GB
+                    # and SDPA then falls back to materialising the scores
+                    mask = ids[None, :] <= ids[:, None]
+                    r["library_ms"] = gpu_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, scale=sm), 5)
+                    del mask
+                msg = (f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
+                       f" ms" + (f", SDPA with the boolean mask "
+                                 f"{r['library_ms']:.3f} ms"
+                                 if "library_ms" in r else "")
+                       + f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}: "
+                       f"{r['ops'] / 1e12:.3f} TFLOP bf16, "
+                       f"{r['bytes'] / 1e6:.1f} MB)")
+            del q, k, v
+            res[tag] = r
+            log(f"[kernels] block_causal_attention (1, {h}, {n}, {d}) {name},"
+                f" {blocks} causal blocks: kernel vs plain (float32) max abs "
+                f"err {r['max_abs_err']:.3e}, error ratio "
+                f"{r['error_ratio']:.3f} (limit 1){msg}")
+    return res
+
+
 def phase_depth(gen, dev):
     import torch
 
@@ -279,6 +398,10 @@ def phase_depth(gen, dev):
 
 
 def phase_stereo(metric, frames, gen, dev):
+    """The stereo step on all frames of the phase-3 depth (batches of 8,
+    kept as the infill's input) and, 4 times over, on one synthetic batch.
+    -> (frames/s by source, batches run, SBS frames, SBS infill mask)."""
+    import numpy as np
     import torch
 
     from metric_depth_video_toolbox_tpu_torch.ops import codec
@@ -286,17 +409,16 @@ def phase_stereo(metric, frames, gen, dev):
 
     cfg = movie_config(H, W)
     scene_depth, scene_color = synth_scene(BATCH, gen, dev)
-    sources = {
-        "phase-3 depth": (codec.encode_depth_frame(
-            torch.as_tensor(metric[:BATCH], device=dev), 100.0),
-            torch.as_tensor(frames[:BATCH], device=dev)),
-        "synthetic scene": (codec.encode_depth_frame(scene_depth, 100.0),
-                            scene_color)}
-    fps = {}
-    reps = 4
-    for name, (rgb, color) in sources.items():
-        args = stereo_inputs(rgb, color)
-        out = stereo.stereo_step(cfg, *args)
+    n = len(metric)
+    clip = [stereo_inputs(codec.encode_depth_frame(torch.as_tensor(
+        metric[i:i + BATCH], device=dev), 100.0), torch.as_tensor(
+            frames[i:i + BATCH], device=dev)) for i in range(0, n, BATCH)]
+    scene = stereo_inputs(codec.encode_depth_frame(scene_depth, 100.0),
+                          scene_color)
+    sources = {"phase-3 depth": clip, "synthetic scene": [scene] * 4}
+    fps, batches, kept = {}, 0, None
+    for name, runs in sources.items():
+        out = stereo.stereo_step(cfg, *runs[0])       # warm-up and checks
         img, mask = out["image"], out["infill_mask"]
         if img.shape != (BATCH, H, 2 * W, 3) or mask.shape != img.shape:
             raise RuntimeError(f"stereo: image {img.shape}, mask "
@@ -307,14 +429,119 @@ def phase_stereo(metric, frames, gen, dev):
                                f"{hole_share}, image max {img.max()})")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            stereo.stereo_step(cfg, *args)
+        outs = [stereo.stereo_step(cfg, *args) for args in runs]
         dt = time.perf_counter() - t0
-        fps[name] = reps * BATCH / dt
-        log(f"[stereo] {name}: batch {BATCH} 1080p movie config: "
-            f"{fps[name]:.3f} frames/s (u8 out on host); hole share "
-            f"{hole_share:.4f}")
-    return fps, len(sources) * (reps + 1)
+        batches += 1 + len(runs)
+        fps[name] = len(runs) * BATCH / dt
+        if kept is None:
+            kept = (np.concatenate([o["image"] for o in outs]),
+                    np.concatenate([o["infill_mask"] for o in outs]))
+        log(f"[stereo] {name}: {len(runs)} batches of {BATCH} at 1080p, "
+            f"movie config: {fps[name]:.3f} frames/s (u8 out on host); "
+            f"hole share {hole_share:.4f}")
+    return fps, batches, kept[0], kept[1]
+
+
+def infill_engine(dev, chunk=INFILL_FRAMES):
+    from metric_depth_video_toolbox_tpu_torch.models import wan as wan_mod
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+
+    eng, drv = idf.make_engine("inspatio_world", cfg=wan_mod.WAN_1_3B,
+                               device=dev, chunk=chunk)
+    return eng, {k: drv[k] for k in ("mirror_left", "drift_correct",
+                                      "apply_edge_blending")}
+
+
+def phase_infill(eng, drv, sbs, mask_rgb, mono, dev):
+    """The SBS chunk loop over both eyes (one 40-frame chunk each): the
+    infill's frames/s, the sampler's latents finite, uint8 changed only
+    inside the holes. The caller zeroes and reads the launch counts."""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import wan as wan_mod
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+
+    hole = np.any(mask_rgb != 0, axis=-1)
+    finite = []
+    eng.on_latents = lambda z: finite.append(bool(torch.isfinite(z).all()))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = idf.infill_sbs_frames(sbs, hole, eng, mono=mono, **drv)
+        dt = time.perf_counter() - t0
+    finally:
+        eng.on_latents = None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = sbs.shape[0]
+    if out.shape != sbs.shape or out.dtype != np.uint8:
+        raise RuntimeError(f"infill: output {out.shape} {out.dtype}")
+    if finite != [True, True]:
+        raise RuntimeError(f"infill: sampler latents finite per eye: "
+                           f"{finite}")
+    if not np.array_equal(out[~hole], sbs[~hole]):
+        raise RuntimeError("infill: pixels outside the holes changed")
+    changed = float((out[hole] != sbs[hole]).any(-1).mean())
+    if not changed > 0.5:
+        raise RuntimeError(f"infill: only {changed:.3f} of hole pixels "
+                           f"were filled")
+    log(f"[infill] WAN_1_3B bf16, 2 eyes x {n} frames 1080x1920 -> 480x832 "
+        f"(padded to {wan_mod.pad_to_valid_t(n)} frames, "
+        f"{wan_mod.latent_frames(wan_mod.pad_to_valid_t(n))} latent "
+        f"frames, {WAN_N} tokens): {dt:.3f} s, {2 * n / dt:.3f} eye-frames/s"
+        f" ({n / dt:.3f} SBS frames/s); hole share "
+        f"{float(hole.mean()):.4f}, {changed:.4f} of hole pixels changed, "
+        f"outside holes unchanged; peak device memory {peak:.2f} GiB")
+    return n / dt, dt, peak
+
+
+def phase_reference_infill(sbs, mask_rgb, mono, dev):
+    """A narrow Wan (dim 256, 2 heads of 128, 2 layers, float32) runs one
+    infill chunk on the card and on the CPU with the same weights and
+    noise: uint8 within 1 LSB on at most 1% of bytes, equal outside the
+    holes."""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import wan as wan_mod
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+
+    cfg = wan_mod.WanConfig(dim=256, ffn_dim=512, layers=2, heads=2,
+                            text_dim=64, n_prompt_tokens=4, freq_dim=64,
+                            dtype="float32",
+                            vae=wan_mod.WanVAEConfig(ch=16, dtype="float32"))
+    # the 270x480 window of the right eye with the most holes
+    hole = np.any(mask_rgb[:9, :, W:] != 0, -1)
+    y0, x0 = max(((y, x) for y in range(0, H - 269, 270)
+                  for x in range(0, W - 479, 480)),
+                 key=lambda p: hole[:, p[0]:p[0] + 270,
+                                    p[1]:p[1] + 480].sum())
+    win = (slice(0, 9), slice(y0, y0 + 270))
+    f = np.ascontiguousarray(sbs[win + (slice(W + x0, W + x0 + 480),)])
+    m = np.ascontiguousarray(hole[win + (slice(x0, x0 + 480),)])
+    mono = np.ascontiguousarray(mono[win + (slice(x0, x0 + 480),)])
+    cpu = idf.CausalInfillEngine(cfg=cfg, work_hw=(64, 128), chunk=9,
+                                 device="cpu")
+    card = idf.CausalInfillEngine(cfg=cfg, work_hw=(64, 128), chunk=9,
+                                  device=dev, params=cpu.params())
+    noise = torch.randn((1, 3, 8, 16, 16),
+                        generator=torch.Generator().manual_seed(5))
+    got = {name: e.infill_chunk(f, m, mono, noise=noise)
+           for name, e in (("cpu", cpu), ("card", card))}
+    d = np.abs(got["cpu"].astype(int) - got["card"].astype(int))
+    share = float((d > 0).mean())
+    log(f"[reference] narrow Wan infill chunk (dim 256, 2x128 heads, 2 "
+        f"layers, f32), 9 frames 270x480 -> 64x128, card vs CPU: max "
+        f"{int(d.max())} LSB on {share:.5f} of bytes (limit 1 LSB on 1%); "
+        f"hole share {float(m.mean()):.4f}")
+    if d.max() > 1 or share > 0.01 or not np.array_equal(
+            got["card"][~m], f[~m]):
+        raise RuntimeError("reference: the card's infill disagrees with "
+                           "the CPU's")
 
 
 def phase_reference(dev):
@@ -366,10 +593,27 @@ def phase_reference(dev):
         raise RuntimeError("reference: the card disagrees with the CPU")
 
 
-def phase_profile(metric, frames, dev):
+# device kernels of the infill by kind, by substrings of their names (the
+# first kind that matches; cuDNN's convolutions are implicit GEMMs)
+KINDS = (("B3 block-causal attention", ("bc_attn",)),
+         ("convolution (VAE)", ("conv", "fprop", "dgrad", "winograd")),
+         ("GEMM (dense layers)", ("gemm", "nvjet", "cutlass")),
+         ("copies", ("memcpy", "memset")))
+
+
+def kind_of(key):
+    low = key.lower()
+    for kind, subs in KINDS:
+        if any(sub in low for sub in subs):
+            return kind
+    return "other (elementwise, norms, softmax, FFT, ...)"
+
+
+def phase_profile(metric, frames, infill, dev):
     """Where the time goes: the stereo step (device only, then with the
-    uint8 results copied to the host) and the depth engine, each once
-    under torch.profiler; the kernels with the most device time."""
+    uint8 results copied to the host), the depth engine and one eye's
+    infill chunk, each under torch.profiler; the kernels with the most
+    device time, and for the infill the device time by kind."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -398,19 +642,30 @@ def phase_profile(metric, frames, dev):
     t0 = time.perf_counter()
     eng.infer_video(frames)
     t_depth = time.perf_counter() - t0
-    for name, fn, wall in (
-            ("stereo step", lambda: stereo.stereo_step(cfg, *args), t_host),
+    ieng, eye = infill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ieng.infill_chunk(*eye)
+    t_infill = time.perf_counter() - t0
+    for name, fn, wall, reps in (
+            ("stereo step", lambda: stereo.stereo_step(cfg, *args), t_host,
+             2),
             ("depth engine (40 frames)", lambda: eng.infer_video(frames),
-             t_depth)):
-        for _ in range(2):      # the first profile pays the tracer's setup
+             t_depth, 2),
+            (f"infill chunk (one eye, {INFILL_FRAMES} frames)",
+             lambda: ieng.infill_chunk(*eye), t_infill, 1)):
+        # the first profile pays the tracer's setup
+        for _ in range(reps):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
         # device-side rows only (kernels and copies); the CPU ops that
-        # launched them would count the same time again
+        # launched them would count the same time again, and the stage
+        # ranges' device-side spans cover the kernels inside them
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("infill.")]
         busy = sum(e.self_device_time_total for e in events) / 1e3
         log(f"[profile] {name}: device busy {busy:.3f} ms of "
             f"{wall * 1e3:.3f} ms wall unprofiled ({busy / (wall * 1e3):.1%})")
@@ -419,6 +674,20 @@ def phase_profile(metric, frames, dev):
             ms = e.self_device_time_total / 1e3
             log(f"[profile]   {ms:9.3f} ms {ms / max(busy, 1e-9):6.1%} "
                 f"x{e.count:<5d} {e.key[:100]}")
+        if reps == 1:
+            for e in prof.key_averages():
+                if (e.key.startswith("infill.")
+                        and e.device_type == DeviceType.CUDA):
+                    ms = e.self_device_time_total / 1e3
+                    log(f"[profile]   stage {e.key}: {ms:9.3f} ms span on "
+                        f"the device ({ms / (wall * 1e3):6.1%} of the wall)")
+            kinds = {}
+            for e in events:
+                k = kind_of(e.key)
+                kinds[k] = kinds.get(k, 0.0) + e.self_device_time_total / 1e3
+            for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+                log(f"[profile]   by kind: {ms:9.3f} ms "
+                    f"{ms / max(busy, 1e-9):6.1%} {k}")
 
 
 def phase_files(dev):
@@ -444,13 +713,21 @@ def phase_files(dev):
                   "--color_video", clip, "--xfov", "60", "--infill_mask",
                   "--batch_size", "4"])
         dt = time.perf_counter() - t0
-        out = clip + "_depth.mkv_stereo.mkv"
-        with vio.VideoReader(out) as r:
-            n, w = r.frame_count, r.width
-        if n != 12 or w != 960:
-            raise RuntimeError(f"files: {out} has {n} frames of width {w}")
+        sbs = clip + "_depth.mkv_stereo.mkv"
+        t0 = time.perf_counter()
+        cli.main(["infill", "--sbs_color_video", sbs, "--color_video", clip,
+                  "--infill_engine", "inspatio_world", "--model_scale",
+                  "tiny"])
+        dt_infill = time.perf_counter() - t0
+        for out in (sbs, sbs + "_infilled.mkv"):
+            with vio.VideoReader(out) as r:
+                n, w = r.frame_count, r.width
+            if n != 12 or w != 960:
+                raise RuntimeError(f"files: {out} has {n} frames of width "
+                                   f"{w}")
         log(f"[files] depth -> stereo file to file, 12 frames 270x480 "
-            f"(OpenCV {cv2.__version__}): {dt:.3f} s")
+            f"(OpenCV {cv2.__version__}): {dt:.3f} s; infill (inspatio_world"
+            f", WAN_TINY at 480x832) file to file: {dt_infill:.3f} s")
 
 
 def main():
@@ -468,6 +745,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    import numpy as np
+
     # float32 results are compared against plain versions: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -482,35 +761,78 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    for src in sorted(cuda_build.CSRC_DIR.glob("*.cu")):
-        t0 = time.perf_counter()
-        cuda_build.load(src.stem)
-        log(f"[build] {src.stem} in {time.perf_counter() - t0:.2f} s")
-        for line in cuda_build.BUILD_LOG.get(src.stem, "").splitlines():
+    from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
+
+    names = sorted(src.stem for src in cuda_build.CSRC_DIR.glob("*.cu"))
+    t0 = time.perf_counter()
+    cuda_build.build(names)                  # one nvcc per source, together
+    for name in names:
+        cuda_build.load(name)
+    log(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name in names:
+        for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
-                log(f"[build] {src.stem}: {line.strip()}")
+                log(f"[build] {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     sweep = phase_kernels(gen, dev)
+    attention = phase_kernels_attention(gen, dev)
 
-    ws.LAUNCHES["disparity_sweep"] = 0
+    def zero_counts():
+        ws.LAUNCHES["disparity_sweep"] = 0
+        bcm.LAUNCHES["block_causal_attention"] = 0
+
+    def counts():
+        return (ws.LAUNCHES["disparity_sweep"],
+                bcm.LAUNCHES["block_causal_attention"])
+
+    zero_counts()
     metric, frames, depth_fps = phase_depth(gen, dev)
-    stereo_fps, batches = phase_stereo(metric, frames, gen, dev)
-    launches = ws.LAUNCHES["disparity_sweep"]
-    if launches != 2 * batches:
-        raise RuntimeError(f"disparity_sweep launched {launches} times on "
-                           f"the main path, expected {2 * batches} (main "
+    stereo_fps, batches, sbs, sbs_mask = phase_stereo(metric, frames, gen,
+                                                      dev)
+    launches, bc_off_path = counts()
+    if launches != 2 * batches or bc_off_path:
+        raise RuntimeError(f"depth + stereo path: disparity_sweep launched "
+                           f"{launches} times, expected {2 * batches} (main "
                            f"+ anchor per batch of {BATCH} frames x 2 "
-                           f"eyes)")
-    log(f"[main path] disparity_sweep launches: {launches} over {batches} "
-        f"batches: 2 per batch, each sweeping {BATCH} frames x 2 eyes = 4 "
-        f"sweeps per frame")
+                           f"eyes); block_causal_attention {bc_off_path}, "
+                           f"expected 0")
+    log(f"[main path] depth + stereo: disparity_sweep launches: {launches} "
+        f"over {batches} batches: 2 per batch, each sweeping {BATCH} frames "
+        f"x 2 eyes = 4 sweeps per frame")
+
+    # the infill's first chunk pays cuDNN's algorithm search and the
+    # allocator's growth: one eye once before the measured run
+    eng, drv = infill_engine(dev)
+    eye = (np.ascontiguousarray(sbs[:, :, W:]),
+           np.any(sbs_mask[:, :, W:] != 0, -1), frames)
+    t0 = time.perf_counter()
+    eng.infill_chunk(*eye)
+    torch.cuda.synchronize()
+    log(f"[infill] first chunk (one eye, weights drawn before): "
+        f"{time.perf_counter() - t0:.3f} s")
+    eng.clear_cache()
+    zero_counts()
+    infill_fps, infill_s, infill_peak = phase_infill(eng, drv, sbs, sbs_mask,
+                                                     frames, dev)
+    sweep_off_path, bc_launches = counts()
+    want = 2 * 16 * 30
+    if bc_launches != want or sweep_off_path:
+        raise RuntimeError(f"infill path: block_causal_attention launched "
+                           f"{bc_launches} times, expected {want} (2 eyes x "
+                           f"16 DiT forwards x 30 layers); disparity_sweep "
+                           f"{sweep_off_path}, expected 0")
+    log(f"[main path] infill: block_causal_attention launches: "
+        f"{bc_launches} = 2 eyes x 16 DiT forwards (4 causal blocks x 4 "
+        f"steps) x 30 layers")
 
     phase_reference(dev)
+    phase_reference_infill(sbs, sbs_mask, frames, dev)
     phase_files(dev)
-    phase_profile(metric, frames, dev)
+    phase_profile(metric, frames, (eng, eye), dev)
 
     main_ = sweep["main"]
+    bf16, prod = attention["bfloat16"], attention["production"]
     kernels = [{
         "name": "disparity_sweep", "route": "cuda",
         "source": f"{PACKAGE}/csrc/disparity_sweep.cu",
@@ -524,8 +846,29 @@ def main():
                                              "bound_ms", "bound_by",
                                              "active_share")}
                    for k, v in sweep.items()},
+    }, {
+        "name": "block_causal_attention", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/block_causal_attention.cu",
+        "replaces":
+            "metric_depth_video_toolbox_tpu/ops/blockcausal_pallas.py:43",
+        "launches": bc_launches,
+        "max_abs_err": bf16["max_abs_err"],
+        "ms": bf16["ms"], "plain_ms": bf16["plain_ms"],
+        "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+        "library_ms": bf16["library_ms"],
+        "shape": f"(1, 12, {WAN_N}, 128) bfloat16, {WAN_BLOCKS} causal "
+                 f"blocks",
+        "error_ratio": bf16["error_ratio"],
+        "max_abs_err_float32": attention["float32"]["max_abs_err"],
+        "production": {"shape": f"(1, 12, {PROD_N}, 128) bfloat16, "
+                                f"{PROD_BLOCKS} causal blocks",
+                       **{k: prod[k] for k in (
+                           "ms", "plain_ms", "bound_ms", "bound_by",
+                           "max_abs_err", "error_ratio")}},
     }]
-    log(json.dumps({"depth_fps": depth_fps, "stereo_fps": stereo_fps}))
+    log(json.dumps({"depth_fps": depth_fps, "stereo_fps": stereo_fps,
+                    "infill_sbs_fps": infill_fps, "infill_s": infill_s,
+                    "infill_peak_gib": infill_peak}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])
     log(json.dumps({"ok": True, "device": {

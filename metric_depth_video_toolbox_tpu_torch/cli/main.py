@@ -2,6 +2,7 @@
 
   mdvt-torch depth     video_metric_convert (VDA engine)
   mdvt-torch stereo    stereo_rerender (disparity-sweep path)
+  mdvt-torch infill    SBS infill (--infill_engine inspatio_world)
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
@@ -16,12 +17,13 @@ import sys
 SUBCOMMANDS = {
     "depth": "metric_depth_video_toolbox_tpu_torch.cli.video_metric_convert",
     "stereo": "metric_depth_video_toolbox_tpu_torch.cli.stereo_rerender",
+    "infill": "metric_depth_video_toolbox_tpu_torch.cli.infill",
 }
 
-NOT_PORTED = ("mask", "convergence", "track", "align", "export", "infill",
-              "movie", "view", "split-sbs", "analyse-tracking",
-              "analyse-depth", "flow", "slam", "upscale", "project",
-              "inpaint", "engine", "gui", "download-weights", "bench")
+NOT_PORTED = ("mask", "convergence", "track", "align", "export", "movie",
+              "view", "split-sbs", "analyse-tracking", "analyse-depth",
+              "flow", "slam", "upscale", "project", "inpaint", "engine",
+              "gui", "download-weights", "bench")
 
 
 def main(argv=None):

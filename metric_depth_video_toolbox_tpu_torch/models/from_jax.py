@@ -6,12 +6,15 @@ the layout changes of each leaf:
 
   Dense  ``kernel`` (in, out)      -> ``weight`` (out, in)
   Conv   ``kernel`` (H, W, I, O)   -> ``weight`` (O, I, H, W)
+  Conv3D ``kernel`` (T, H, W, I, O) -> ``weight`` (O, I, T, H, W)
   LayerNorm / GroupNorm ``scale``  -> ``weight``
-  ``bias``, LayerScale ``gamma``, ``cls_token``, ``pos_embed`` as they are.
+  ``bias``, LayerScale ``gamma``, ``cls_token``, ``pos_embed``, and Wan's
+  ``modulation``, ``head_modulation``, ``prompt_tokens`` as they are.
 
-Covers ViT, DPTHead, DPTHeadTemporal, VideoDepthAnything and
-DepthAnything. The tree's leaves are taken as numpy arrays, so this module
-needs no JAX.
+Covers ViT, DPTHead, DPTHeadTemporal, VideoDepthAnything, DepthAnything,
+and Wan's WanDiT, WanVAEEncoder and WanVAEDecoder (RMSNorm ``scale`` and
+FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale).
+The tree's leaves are taken as numpy arrays, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ def _leaf(name, arr):
             return arr.T
         if arr.ndim == 4:
             return arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:
+            return arr.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"kernel of unexpected rank {arr.ndim}")
     return arr
 

@@ -1,6 +1,7 @@
 """Image-space ops (PyTorch port of the parts of ``ops/image.py`` that the
-stereo infill mask uses): bilinear resize, separable Gaussian filters,
-masked blur and the two-scale diffusion inpaint.
+stereo infill mask and the causal infill use): bilinear resize, bilinear
+sampling at float coordinates, separable Gaussian filters, masked blur and
+the two-scale diffusion inpaint.
 
 Images are channels-last at the public functions, (..., H, W, C), like the
 JAX package; the filters work on (..., H, W) planes.
@@ -35,6 +36,37 @@ def resize_nchw(x, out_hw):
     y = F.interpolate(x.to(torch.float32), size=(oh, ow), mode="bilinear",
                       align_corners=False, antialias=shrink)
     return y.to(x.dtype)
+
+
+def bilinear_sample(img, xy, fill=0.0):
+    """Sample (..., H, W, C) at float pixel coordinates xy (..., H', W',
+    2), one image per leading index; taps outside the image read
+    ``fill``. The cv2.remap replacement of drift correction."""
+    h, w = img.shape[-3:-1]
+    x, y = xy[..., 0], xy[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0 = x0.to(torch.int64)
+    y0 = y0.to(torch.int64)
+    lead, c = img.shape[:-3], img.shape[-1]
+    flat = img.reshape(lead + (h * w, c))
+
+    def tap(yi, xi):
+        ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(
+            lead + (-1, 1))
+        v = torch.gather(flat, -2, idx.expand(lead + (idx.shape[-2], c)))
+        v = v.reshape(yi.shape + (c,))
+        return torch.where(ok[..., None], v, torch.full_like(v, fill))
+
+    v00 = tap(y0, x0)
+    v01 = tap(y0, x0 + 1)
+    v10 = tap(y0 + 1, x0)
+    v11 = tap(y0 + 1, x0 + 1)
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))
 
 
 def gaussian_kernel_1d(ksize, sigma=0.0, device=None):

@@ -1,0 +1,334 @@
+"""Diffusion infill of SBS video: the InSpatio-World-class causal engine
+(PyTorch port of ``pipeline/infill_diffusion.py``).
+
+:class:`CausalInfillEngine` runs the Wan-class causal DiT over Wan-VAE
+latents, conditioned on three latent videos: the render with its holes
+blacked out, the source video (encoded once and shared by both eyes), and
+the hole mask (4 temporal channels per latent frame). The chunk pads so its
+latent frames split into causal blocks of 3; the sampler generates them
+block by block in a few flow steps; the decode is interleaved with the
+composite (resize back, LHM colour match against the non-hole pixels,
+paste inside the holes), so the full decoded video never exists at once.
+
+:func:`infill_sbs_frames` is the per-eye chunk loop on in-memory arrays;
+:func:`infill_sbs_video_diffusion` reads and writes the files around it.
+The SVD-class engines (stereocrafter, m2svid) wait for ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from metric_depth_video_toolbox_tpu_torch.models import wan as wan_mod
+from metric_depth_video_toolbox_tpu_torch.ops import drift as dr
+from metric_depth_video_toolbox_tpu_torch.ops import image as im
+from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
+from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
+
+_A11 = "ROADMAP A11: SVD-class diffusion infill"
+
+
+class CausalInfillEngine:
+    """InSpatio-World-class infill: a Wan-rate causal video DiT over
+    Wan-VAE latents (``models.wan``).
+
+    ``params``: ``{"dit", "enc", "dec"}`` state dicts (e.g. from
+    ``models.from_jax``); None draws seeded weights (``rng_seed``). In
+    bfloat16 mode the DiT's parameters are stored in bfloat16 (every matmul
+    casts to bfloat16 anyway). The initial noise of each chunk is drawn from
+    the engine's ``torch.Generator`` unless ``infill_chunk`` is given one.
+
+    ``on_latents``: None, or a callable that ``infill_chunk`` calls with
+    each chunk's sampled latents (1, T_lat, lh, lw, z_ch) before they are
+    decoded (to check or record them; its result is ignored).
+    """
+
+    # frames per streamed encode segment (a multiple of 4) and latents per
+    # interleaved decode + composite segment; streaming is exact, so these
+    # only bound the memory of the VAE's full-resolution activations
+    ENC_SEG = 16
+    DEC_SEG = 4
+
+    def __init__(self, cfg=None, params=None, work_hw=(480, 832),
+                 chunk=225, overlap=6, rng_seed=0, mono_conditioning=True,
+                 device=None):
+        self.cfg = cfg or wan_mod.WAN_1_3B
+        self.work_hw = tuple(work_hw)
+        self.chunk = chunk
+        self.overlap = overlap
+        self.mono_conditioning = mono_conditioning
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rng_seed)
+        self._params = params
+        self.dit = self.enc = self.dec = None
+        self._ref_cache = (None, None)   # (key, ref latent)
+        self.on_latents = None
+
+    def clear_cache(self):
+        """Forget the cached source latent, so the next chunk encodes its
+        source video again."""
+        self._ref_cache = (None, None)
+
+    def _t_pad(self, t):
+        return wan_mod.pad_to_valid_t(t, self.cfg.block_frames)
+
+    def _ensure(self):
+        if self.dit is not None:
+            return
+        with torch.device(self.device):
+            mods = {"dit": wan_mod.WanDiT(self.cfg),
+                    "enc": wan_mod.WanVAEEncoder(self.cfg.vae),
+                    "dec": wan_mod.WanVAEDecoder(self.cfg.vae)}
+        for name, mod in mods.items():
+            if self._params is None:
+                wan_mod.init_weights(mod, self.generator)
+            else:
+                mod.load_state_dict(self._params[name], strict=True)
+        self._params = None
+        if self.cfg.dtype == "bfloat16":
+            mods["dit"].to(torch.bfloat16)
+        self.dit, self.enc, self.dec = (mods[k].eval() for k in
+                                        ("dit", "enc", "dec"))
+
+    def params(self):
+        """The engine's weights as ``{"dit", "enc", "dec"}`` state dicts."""
+        self._ensure()
+        return {"dit": self.dit.state_dict(), "enc": self.enc.state_dict(),
+                "dec": self.dec.state_dict()}
+
+    def _vae_encode(self, x):
+        """(1, T, wh, ww, 3) -> (1, T_lat, lh, lw, z), streamed."""
+        outs, cache = [], None
+        for s in range(0, x.shape[1], self.ENC_SEG):
+            z, cache = self.enc.stream(x[:, s:s + self.ENC_SEG], cache)
+            outs.append(z)
+        return torch.cat(outs, dim=1)
+
+    def _to_work(self, frames_u8):
+        """(T, H, W, 3) uint8 on the device -> (T, wh, ww, 3) float in
+        [-1, 1], resized (antialiased when shrinking)."""
+        return im.resize(frames_u8.float() / 127.5 - 1.0, self.work_hw)
+
+    def _encode_ref(self, mono_u8, tp):
+        """The source latent, cached by content, so the second eye's pass
+        reuses the first's encode."""
+        key = (mono_u8.shape, hash(np.ascontiguousarray(
+            mono_u8[::max(1, mono_u8.shape[0] // 4), ::16, ::16]).tobytes()))
+        if self._ref_cache[0] == key:
+            return self._ref_cache[1]
+        mono = torch.as_tensor(mono_u8, device=self.device)
+        ref = self._vae_encode(_pad_frames(self._to_work(mono), tp)[None])
+        self._ref_cache = (key, ref)
+        return ref
+
+    @torch.no_grad()
+    def infill_chunk(self, frames_u8, hole_mask, mono_u8=None, noise=None):
+        """(T, H, W, 3) uint8 render + (T, H, W) bool holes -> infilled
+        (T, H, W, 3) uint8 numpy, composited into the holes and LHM
+        colour-matched. ``noise``: the sampler's initial latents (1, T_lat,
+        lh, lw, z_ch), drawn from the engine's generator when None."""
+        self._ensure()
+        frames_u8 = np.ascontiguousarray(frames_u8)
+        t, h, w = frames_u8.shape[:3]
+        tp = self._t_pad(t)
+        mono_u8 = (np.zeros_like(frames_u8) if mono_u8 is None
+                   else np.ascontiguousarray(mono_u8))
+        # the stages carry profiler ranges (free unless a profiler runs)
+        with record_function("infill.encode"):
+            ref = self._encode_ref(mono_u8, tp)
+            tl, lh, lw = ref.shape[1:4]
+            f_dev = torch.as_tensor(frames_u8, device=self.device)
+            m_dev = torch.as_tensor(np.ascontiguousarray(hole_mask),
+                                    device=self.device)
+            mw = resize_mask(m_dev, self.work_hw)
+            # holes are blacked out of the render: black = 0 u8 = -1
+            fw = torch.where(mw[..., None] > 0, -1.0, self._to_work(f_dev))
+            fw, mw = _pad_frames(fw, tp), _pad_frames(mw, tp)
+            render = self._vae_encode(fw[None])
+            del fw
+            cond = torch.cat([render, ref, wan_mod.mask_to_latent(
+                mw, tl, lh, lw)[None]], dim=-1)
+            del render, mw
+        if noise is None:
+            noise = torch.randn((1, tl, lh, lw, self.cfg.z_ch),
+                                generator=self.generator,
+                                device=self.device)
+        with record_function("infill.sample"):
+            z = wan_mod.sample_causal(self.dit, cond, self.cfg,
+                                      noise.to(self.device))
+        del cond
+        if self.on_latents is not None:
+            self.on_latents(z)
+
+        out = np.empty((t, h, w, 3), np.uint8)
+        cache, s_lat, s_pix = None, 0, 0
+        with record_function("infill.decode_composite"):
+            while s_lat < tl and s_pix < t:
+                y, cache = self.dec.stream(
+                    z[:, s_lat:s_lat + self.DEC_SEG], cache)
+                n = min(y.shape[1], t - s_pix)
+                sl = slice(s_pix, s_pix + n)
+                out[sl] = _composite(y[0, :n], f_dev[sl],
+                                     m_dev[sl]).cpu().numpy()
+                s_lat += self.DEC_SEG
+                s_pix += n
+        return out
+
+
+def resize_mask(mask, out_hw):
+    """(T, H, W) mask -> (T, h, w) float32 by nearest neighbour with
+    half-pixel centres (``jax.image.resize(..., "nearest")``; torch's
+    ``nearest`` mode rounds differently)."""
+    return F.interpolate(mask.float()[:, None], size=tuple(out_hw),
+                         mode="nearest-exact")[:, 0]
+
+
+def _pad_frames(x, tp):
+    """Pad (T, ...) to tp frames by repeating the last one."""
+    t = x.shape[0]
+    if tp <= t:
+        return x
+    return torch.cat([x, x[-1:].expand((tp - t,) + tuple(x.shape[1:]))])
+
+
+def _composite(decoded, f_u8, hole):
+    """Decoded frames (L, wh, ww, 3) in [-1, 1] -> resized to the render's
+    size, LHM colour-matched against its non-hole pixels, pasted inside the
+    holes: (L, H, W, 3) uint8 (clip, then truncate, as the JAX package)."""
+    h, w = f_u8.shape[1:3]
+    out = im.resize((decoded.float() * 0.5 + 0.5) * 255.0, (h, w))
+    f = f_u8.float()
+    outm = infill_ops.lhm_color_transfer(out, f, 1.0 - hole.float())
+    comp = torch.where(hole[..., None], outm, f)
+    return torch.clamp(comp, 0, 255).to(torch.uint8)
+
+
+def infill_sbs_frames(frames, hole, engine, mono=None, mirror_left=True,
+                      drift_correct=False, apply_edge_blending=False):
+    """The chunked SBS loop on in-memory arrays: (T, H, 2W, 3) uint8 SBS
+    frames and (T, H, 2W) bool holes -> infilled SBS frames (numpy).
+
+    Each eye runs in chunks of ``engine.chunk`` frames overlapping by
+    ``engine.overlap``; the first overlap/2 frames of a chunk are the last
+    chunk's infilled frames, as context. ``mono``: the source video, the
+    engine's shared conditioning. ``drift_correct`` runs the
+    phase-correlation drift fix of each generated chunk against its render
+    (on the engine's device)."""
+    if apply_edge_blending:
+        raise NotImplementedError(f"not ported yet: --apply_edge_blending "
+                                  f"(mark_lower_side and the halo blend, "
+                                  f"{_A11})")
+    t = frames.shape[0]
+    half = frames.shape[2] // 2
+    out_frames = frames.copy()
+    for eye in ("left", "right"):
+        cols = slice(0, half) if eye == "left" else slice(half, None)
+        f, m = frames[:, :, cols], hole[:, :, cols]
+        mono_eye = mono
+        flip = eye == "left" and mirror_left
+        if flip:
+            f, m = f[:, :, ::-1], m[:, :, ::-1]
+            if mono_eye is not None:
+                mono_eye = mono_eye[:, :, ::-1]
+        result = np.empty_like(f)
+        start, context = 0, None
+        while start < t:
+            end = min(start + engine.chunk, t)
+            idx = np.clip(np.arange(start, start + engine.chunk), 0, t - 1)
+            cf = f[idx].copy()
+            cm = m[idx].copy()
+            if context is not None:
+                n_ctx = min(engine.overlap // 2, context.shape[0])
+                if n_ctx > 0:   # overlap < 2 carries no context frames
+                    cf[:n_ctx] = context[-n_ctx:]
+                    cm[:n_ctx] = False   # already infilled, as context
+            filled = engine.infill_chunk(
+                cf, cm, mono_u8=mono_eye[idx] if mono_eye is not None
+                else None)
+            if drift_correct:
+                dev = engine.device
+                filled = dr.drift_correct_video(
+                    torch.as_tensor(filled, device=dev),
+                    torch.as_tensor(cf, device=dev)).cpu().numpy()
+            n_new = end - start
+            result[start:end] = filled[:n_new]
+            context = filled[:n_new]
+            start += engine.chunk - engine.overlap if end < t else \
+                engine.chunk
+        out_frames[:, :, cols] = result[:, :, ::-1] if flip else result
+    return out_frames
+
+
+def infill_sbs_video_diffusion(sbs_video, infill_mask_video, output=None,
+                               color_video=None, engine=None,
+                               max_frames=-1, mirror_left=True,
+                               drift_correct=False,
+                               apply_edge_blending=True):
+    """Chunked diffusion infill of an SBS video file (see
+    :func:`infill_sbs_frames`); writes ``output`` (default
+    ``<sbs>_infilled.mkv``) and returns its path."""
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+
+    if engine is None:
+        raise NotImplementedError(f"not ported yet: the default "
+                                  f"stereocrafter engine ({_A11})")
+    output = output or (sbs_video + "_infilled.mkv")
+    with vio.VideoReader(sbs_video, max_frames=max_frames) as sv:
+        frames = sv.read_all()
+        fps = sv.fps
+    with vio.VideoReader(infill_mask_video) as mv:
+        masks_rgb = mv.read_all()
+    t = frames.shape[0]
+    hole = np.any(masks_rgb[:t] != 0, axis=-1)
+    mono = None
+    if color_video and getattr(engine, "mono_conditioning", False):
+        with vio.VideoReader(color_video, max_frames=max_frames) as cvr:
+            mono = cvr.read_all()[:t]
+    out = infill_sbs_frames(frames, hole, engine, mono=mono,
+                            mirror_left=mirror_left,
+                            drift_correct=drift_correct,
+                            apply_edge_blending=apply_edge_blending)
+    vio.save_rgb_video(out, output, fps)
+    return output
+
+
+# Engine presets mirroring the reference infill zoo's working shapes:
+# chunk/overlap/resolution and behavioral flags.
+ENGINE_PRESETS = {
+    # 25/6 chunks at 1024x768
+    "stereocrafter": dict(chunk=25, overlap=6, work_hw=(768, 1024),
+                          mirror_left=True, drift_correct=False),
+    # 512x512 frames, mono-video conditioning; edge blending opt-in
+    "m2svid": dict(chunk=25, overlap=6, work_hw=(512, 512),
+                   mirror_left=True, drift_correct=False,
+                   mono_conditioning=True, apply_edge_blending=False),
+    # 225/6 chunks at 480x832, shared source latents + drift correction;
+    # edge blending opt-in
+    "inspatio_world": dict(chunk=225, overlap=6, work_hw=(480, 832),
+                           mirror_left=False, drift_correct=True,
+                           mono_conditioning=True,
+                           apply_edge_blending=False),
+}
+
+
+def make_engine(preset="stereocrafter", cfg=None, params=None, device=None,
+                **overrides):
+    """Build an infill engine + the chunk loop's keyword arguments from a
+    preset. ``inspatio_world`` (or any WanConfig cfg) builds the Wan-class
+    causal engine; the SVD-class presets are not ported yet."""
+    p = dict(ENGINE_PRESETS[preset])
+    p.update(overrides)
+    if preset != "inspatio_world" and not isinstance(cfg,
+                                                     wan_mod.WanConfig):
+        raise NotImplementedError(f"not ported yet: the {preset} engine "
+                                  f"({_A11})")
+    eng = CausalInfillEngine(
+        cfg=cfg if isinstance(cfg, wan_mod.WanConfig) else None,
+        params=params, work_hw=p.pop("work_hw"), chunk=p["chunk"],
+        overlap=p["overlap"],
+        mono_conditioning=p.pop("mono_conditioning", True), device=device)
+    return eng, p

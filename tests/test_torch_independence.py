@@ -65,6 +65,15 @@ cfg = stereo.StereoConfig(width=64, height=32, make_infill_mask=True)
 out = stereo.stereo_step(cfg, rgb, col, k, torch.eye(4)[None],
                          torch.full((1,), 2.0), torch.ones(1))
 assert out["image"].shape == (1, 32, 128, 3)
+from metric_depth_video_toolbox_tpu_torch.models import wan
+from metric_depth_video_toolbox_tpu_torch.pipeline import infill_diffusion
+sbs = np.repeat(out["image"], 5, axis=0)
+hole = np.repeat(out["infill_mask"], 5, axis=0).max(-1) > 0
+eng = infill_diffusion.CausalInfillEngine(cfg=wan.WAN_TINY, work_hw=(32, 64),
+                                          chunk=5, device="cpu")
+res = infill_diffusion.infill_sbs_frames(sbs, hole, eng, mono=sbs[:, :, :64],
+                                         mirror_left=False, drift_correct=True)
+assert res.shape == sbs.shape and (res[~hole] == sbs[~hole]).all()
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("OK")
 """
