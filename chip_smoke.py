@@ -10,14 +10,22 @@ of which fails the run on error:
                 metric_depth_video_toolbox_tpu_torch/csrc, one process per
                 source, all started together.
   2. kernels    each kernel's wrapper against its plain PyTorch version
-                on the card: the disparity sweep on the stereo path's own
-                1080p inputs (bit-equal); block-causal attention at the
-                infill phase's shape (1, 12, 18720, 128), 4 causal blocks,
-                in bfloat16 and float32 (within the tolerance of
-                ops/blockcausal.py::error_ratio), timed beside its plain
-                version and scaled_dot_product_attention with the boolean
-                block-causal mask; and at the production chunk's shape
-                (1, 12, 88920, 128), 19 causal blocks, bfloat16.
+                on the card: the disparity sweep and the fused main +
+                anchor sweep on the stereo path's own 1080p inputs
+                (bit-equal, and the fused sweep's main surface bit-equal to
+                the single sweep's under the same bitmap); block-causal
+                attention at the infill phase's shape (1, 12, 18720, 128),
+                4 causal blocks, in bfloat16 and float32 (within the
+                tolerance of ops/blockcausal.py::error_ratio), timed beside
+                its plain version and scaled_dot_product_attention with
+                the boolean block-causal mask, and at the production
+                chunk's shape (1, 12, 88920, 128), 19 causal blocks,
+                bfloat16; packed-qkv attention at DA3_L's cross-view shape
+                (1, 52 x 2368, 48, 64) and per-view shape (52, 2368, 48,
+                64), 2305 real tokens per view, in bfloat16 and float32
+                (same tolerance, real query rows; pad rows finite), timed
+                beside its plain version and scaled_dot_product_attention
+                with the key mask and, unmasked, on the real tokens only.
   3. depth      the VDA engine (ViT-S, 518, bfloat16, seeded weights) on
                 a synthetic 40-frame 1080p clip: two windows, stitched,
                 made metric against the metric anchor.
@@ -26,7 +34,9 @@ of which fails the run on error:
                 40 frames of the encoded phase-3 depth (kept as the infill
                 input) and a synthetic scene. Phases 3-4 are the first
                 main path: the launch counts are zeroed before phase 3 and
-                read after phase 4.
+                read after phase 4. Then the same step with
+                fused_anchor_sweep on the synthetic scene (counts zeroed
+                before, read after: one fused launch per batch).
   5. infill     the second main path: the InSpatio-World causal infill
                 (WAN_1_3B, bfloat16, seeded weights, 480x832 working size,
                 the inspatio_world preset's flags with chunk 40) on the
@@ -34,14 +44,26 @@ of which fails the run on error:
                 clip as the source video; counts zeroed before, read
                 after (960 block-causal launches: 2 eyes x 16 DiT forwards
                 x 30 layers).
-  6. reference  the depth engine, the stereo step and a narrow Wan infill
-                chunk at a small size in float32 on the card and on the
-                CPU: they must agree.
-  7. files      depth -> stereo -> infill (--model_scale tiny) file to
+  6. da3        the third main path: the DA3 engine (DA3_L: ViT-L with
+                cross-view attention in the 12 odd blocks, dual DPT head,
+                504, bfloat16, seeded weights, windows of 40 + 6 reference
+                + 6 overlap frames) on a synthetic 46-frame 1080p clip (two
+                windows of 52 views, so both stitches and the weld run)
+                with attention_impl="flash_packed"; counts zeroed before,
+                read after (48 packed-attention launches: 2 windows x 24
+                blocks). Then the same clip and weights through the
+                default attention (scaled_dot_product_attention), and the
+                two depths compared.
+  7. reference  the depth engine, the stereo step, a narrow Wan infill
+                chunk and a narrow DA3 (flash_packed) at a small size in
+                float32 on the card and on the CPU: they must agree.
+  8. files      depth -> stereo -> infill (--model_scale tiny), da3
+                (--model_size vitt) and stereo --fused_anchor_sweep file to
                 file through cli/main.py, where OpenCV is installed (else
                 one line says it was skipped).
-  8. profile    the stereo step, the depth engine and one eye's infill
-                chunk under torch.profiler: device time, top kernels.
+  9. profile    the stereo step, the depth engine, one eye's infill chunk
+                and the DA3 clip under torch.profiler: device time, top
+                kernels.
 
 It then prints a JSON line of the kernels' launches, times and bounds,
 the card's name and power limit, and last the device JSON line. Exits
@@ -71,9 +93,19 @@ WAN_N, WAN_BLOCKS = 18720, 4   # the infill phase's tokens and causal blocks
 # the inspatio_world preset's 225-frame chunk: 57 latent frames of 30 x 52
 PROD_N, PROD_BLOCKS = 88920, 19
 INFILL_FRAMES = 40
+# DA3_L on a 1080p clip longer than its 40-frame window: 504 x 896 working
+# size, 36 x 64 + 1 tokens per view, 40 + 6 reference + 6 overlap views
+DA3_VIEWS, DA3_TOKENS, DA3_HEADS, DA3_HEAD_DIM = 52, 2305, 16, 64
+DA3_FRAMES = 46                # two windows
+DA3_BLOCKS = 24                # ViT-L's depth: 12 per-view + 12 cross-view
 # one (pixel, plane) test of the sweep: 1 - f, f * b, d - z, |.|, <, > in
 # float32; (1 - f) * a + f * b in float64 (the fused lerp's rounding)
 F32_PER_TEST, F64_PER_TEST = 6, 2
+# DA3 through B4 against the same weights through SDPA, both bfloat16
+# (the routes round at other places inside each of 24 attentions): largest
+# and mean absolute depth difference as a share of the largest depth.
+# Measured on an H100: 2.7e-2 and 1.5e-3.
+DA3_ROUTE_MAX, DA3_ROUTE_MEAN = 0.08, 0.005
 
 
 def log(msg):
@@ -131,34 +163,25 @@ def gpu_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def sweep_work(args, num_planes, pad_left):
-    """(bytes, float32 ops, float64 ops) the sweep needs on these inputs.
-
-    Bytes: the plane vectors and the bitmap read once; of the padded
-    depth, once each column (per row) that some test reads; of the
-    payload, once each column (per row, all C channels) that some hit
-    blends; every output written once. Operations: the (pixel, active
-    plane) tests up to each pixel's first hit, and the payload blend of
-    each hit."""
+def sweep_stream(depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
+                 block_rows, num_planes, pad_left):
+    """What one depth stream of a sweep needs on these inputs -> (tests,
+    hits, depth columns read, payload columns read): the (pixel, active
+    plane) tests up to each pixel's first hit, the hits, and per (element,
+    row, padded column) whether some test reads the depth there and
+    whether some hit blends the payload there."""
     import torch
 
     from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
 
-    depth_pad, color_pad, disp_int, disp_frac, plane_z, plane_tol = args[:6]
-    active = args[-1]
     b, h, wp = depth_pad.shape
-    c = color_pad.shape[1]
     w = wp - 2 * pad_left - 2 * ws.LANE
     dev = depth_pad.device
-    nbytes = sum(t.numel() * t.element_size() for t in
-                 (disp_int, disp_frac, plane_z, plane_tol, active))
-    nbytes += b * h * w * (4 + 4 * c + 1)
     found = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
-    # per (element, row, padded column): reads by tests / by hit blends
     depth_reads = torch.zeros((b, h, wp), dtype=torch.int32, device=dev)
     payload_reads = torch.zeros((b, h, wp), dtype=torch.int32, device=dev)
     tests = 0
-    row_tile = torch.arange(h, device=dev) // ws.BLOCK_ROWS
+    row_tile = torch.arange(h, device=dev) // block_rows
     x = torch.arange(w, device=dev)
     for p in range(num_planes):
         act = (active[:, row_tile, p] > 0)[:, :, None]
@@ -180,11 +203,67 @@ def sweep_work(args, num_planes, pad_left):
             depth_reads.scatter_add_(2, idx, reads.int())
             payload_reads.scatter_add_(2, idx, (hit & reads).int())
         found |= hit
-    hits = int(found.sum())
-    nbytes += 4 * int((depth_reads > 0).sum())
-    nbytes += 4 * c * int((payload_reads > 0).sum())
+    return tests, int(found.sum()), depth_reads > 0, payload_reads > 0
+
+
+def sweep_work(args, num_planes, pad_left):
+    """(bytes, float32 ops, float64 ops) the sweep needs on these inputs.
+
+    Bytes: the plane vectors and the bitmap read once; of the padded
+    depth, once each column (per row) that some test reads; of the
+    payload, once each column (per row, all C channels) that some hit
+    blends; every output written once. Operations: the (pixel, active
+    plane) tests up to each pixel's first hit, and the payload blend of
+    each hit."""
+    from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
+
+    depth_pad, color_pad, disp_int, disp_frac, plane_z, plane_tol = args[:6]
+    active = args[-1]
+    b, h, wp = depth_pad.shape
+    c = color_pad.shape[1]
+    w = wp - 2 * pad_left - 2 * ws.LANE
+    tests, hits, depth_read, payload_read = sweep_stream(
+        depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
+        ws.BLOCK_ROWS, num_planes, pad_left)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (disp_int, disp_frac, plane_z, plane_tol, active))
+    nbytes += b * h * w * (4 + 4 * c + 1)
+    nbytes += 4 * int(depth_read.sum()) + 4 * c * int(payload_read.sum())
     return (nbytes, F32_PER_TEST * tests + 2 * c * hits,
             F64_PER_TEST * tests + 2 * c * hits)
+
+
+def dual_sweep_work(args):
+    """(bytes, float32 ops, float64 ops) the fused main + anchor sweep
+    needs on these inputs: :func:`sweep_work`'s rule over the two streams.
+    The plane vectors once, both bitmaps, each stream's depth columns that
+    its tests read, the shared payload's columns that a hit of either
+    stream blends, the extra payload's columns that an anchor hit blends,
+    the six outputs once; the tests of each stream up to its own first hit
+    and the blends of its hits (S channels for a main hit, S + E for an
+    anchor hit)."""
+    from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
+
+    (depth_pad, edepth_pad, shared_pad, extra_pad, disp_int, disp_frac,
+     plane_z, plane_tol, act_main, act_edge, num_planes, pad_left) = args
+    b, h, wp = depth_pad.shape
+    s, e = shared_pad.shape[1], extra_pad.shape[1]
+    w = wp - 2 * pad_left - 2 * ws.LANE
+    planes = (disp_int, disp_frac, plane_z, plane_tol)
+    main = sweep_stream(depth_pad, *planes, act_main, ws.DUAL_BLOCK_ROWS,
+                        num_planes, pad_left)
+    edge = sweep_stream(edepth_pad, *planes, act_edge, ws.DUAL_BLOCK_ROWS,
+                        num_planes, pad_left)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in planes + (act_main, act_edge))
+    nbytes += b * h * w * (4 + 4 * s + 1 + 4 * s + 4 * e + 1)
+    nbytes += 4 * int(main[2].sum()) + 4 * int(edge[2].sum())
+    nbytes += 4 * s * int((main[3] | edge[3]).sum()) + 4 * e * int(
+        edge[3].sum())
+    tests = main[0] + edge[0]
+    blends = 2 * s * main[1] + 2 * (s + e) * edge[1]
+    return (nbytes, F32_PER_TEST * tests + blends,
+            F64_PER_TEST * tests + blends)
 
 
 def bound_ms(nbytes, f32_ops, f64_ops):
@@ -194,12 +273,13 @@ def bound_ms(nbytes, f32_ops, f64_ops):
                                        else "operations")
 
 
-def movie_config(h, w):
+def movie_config(h, w, **kw):
     from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
 
     return stereo.StereoConfig(width=w, height=h, max_depth=100.0,
                                remove_edges=True, place_edge_points=True,
-                               make_infill_mask=True, has_convergence=True)
+                               make_infill_mask=True, has_convergence=True,
+                               **kw)
 
 
 def stereo_inputs(depth_rgb, color, xfov=60.0, conv_depth=2.0):
@@ -216,8 +296,27 @@ def stereo_inputs(depth_rgb, color, xfov=60.0, conv_depth=2.0):
             torch.ones(b, device=dev))
 
 
+def captured_calls(module, name, fn):
+    """Run ``fn`` with ``module.name`` wrapped -> the argument tuples of
+    the calls it made."""
+    calls = []
+    launch = getattr(module, name)
+
+    def capture(*args):
+        calls.append(args)
+        return launch(*args)
+    setattr(module, name, capture)
+    try:
+        fn()
+    finally:
+        setattr(module, name, launch)
+    return calls
+
+
 def phase_kernels(gen, dev):
-    """Kernel vs plain on the inputs the main path gives the kernel."""
+    """Both sweep kernels vs their plain versions on the inputs the stereo
+    step gives them. -> (results of the single sweep by call, result of
+    the fused sweep)"""
     import torch
 
     from metric_depth_video_toolbox_tpu_torch.ops import codec
@@ -226,17 +325,10 @@ def phase_kernels(gen, dev):
 
     depth, color = synth_scene(BATCH, gen, dev)
     rgb = codec.encode_depth_frame(depth, 100.0)
-    captured = []
     launch = ws.disparity_sweep
-
-    def capture(*args):
-        captured.append(args)
-        return launch(*args)
-    ws.disparity_sweep = capture
-    try:
-        stereo.stereo_step(movie_config(H, W), *stereo_inputs(rgb, color))
-    finally:
-        ws.disparity_sweep = launch
+    captured = captured_calls(
+        ws, "disparity_sweep", lambda: stereo.stereo_step(
+            movie_config(H, W), *stereo_inputs(rgb, color)))
     if len(captured) != 2:
         raise RuntimeError(f"expected 2 sweep calls per step, saw "
                            f"{len(captured)}")
@@ -270,7 +362,62 @@ def phase_kernels(gen, dev):
             f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} "
             f"ms ({by}: {nbytes / 1e6:.1f} MB, {ops32 / 1e9:.3f} GOP "
             f"f32 + {ops64 / 1e9:.3f} GOP f64)")
-    return results
+
+    # the fused main + anchor sweep on the same frames
+    launch_dual = ws.disparity_sweep_dual
+    fused = captured_calls(
+        ws, "disparity_sweep_dual", lambda: stereo.stereo_step(
+            movie_config(H, W, fused_anchor_sweep=True),
+            *stereo_inputs(rgb, color)))
+    if len(fused) != 1:
+        raise RuntimeError(f"expected 1 fused sweep call per step, saw "
+                           f"{len(fused)}")
+    args = fused[0]
+    ref = ws.disparity_sweep_dual_plain(*args)
+    out = launch_dual(*args)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(out, ref)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(out, ref))
+    if not all(same):
+        raise RuntimeError(f"fused sweep: kernel != plain (z, color, found, "
+                           f"anchor color, anchor extra, anchor found "
+                           f"equal: {same}; max abs err {err})")
+    # its main surface against the single sweep's kernel: the same padded
+    # depth, payload and planes, and the single sweep's 64-row bitmap given
+    # to the fused sweep as 32-row tiles (each row of tiles twice)
+    single = captured[0]
+    for a, b in zip(args[:1] + args[2:3] + args[4:8],
+                    single[:6]):
+        if not torch.equal(a, b):
+            raise RuntimeError("fused sweep: the step gave it other main "
+                               "inputs than the single sweep")
+    coarse = single[-1].repeat_interleave(2, dim=1)[
+        :, :args[8].shape[1]].contiguous()
+    out_coarse = launch_dual(*args[:8], coarse, *args[9:])
+    main_same = [torch.equal(a, b)
+                 for a, b in zip(out_coarse[:3], launch(*single))]
+    if not all(main_same):
+        raise RuntimeError(f"fused sweep: main surface != single sweep's "
+                           f"(z, color, found equal: {main_same})")
+    ms = gpu_ms(lambda: launch_dual(*args), 20)
+    plain = gpu_ms(lambda: ws.disparity_sweep_dual_plain(*args), 1)
+    nbytes, ops32, ops64 = dual_sweep_work(args)
+    bnd, by = bound_ms(nbytes, ops32, ops64)
+    shape = (f"B={args[0].shape[0]} H={args[0].shape[1]} "
+             f"WP={args[0].shape[2]} P={args[10]} S={args[2].shape[1]} "
+             f"E={args[3].shape[1]}")
+    dual = {"shape": shape, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by, "bytes": nbytes, "f32_ops": ops32,
+            "f64_ops": ops64, "max_abs_err": err,
+            "active_share": [float(a.float().mean()) for a in args[8:10]],
+            "anchor_share": float(out[5].float().mean())}
+    log(f"[kernels] fused main + anchor: {shape}: kernel == plain bit for "
+        f"bit on all six outputs, main surface == single sweep's; anchors "
+        f"on {dual['anchor_share']:.4f} of pixels; kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+        f"{ops32 / 1e9:.3f} GOP f32 + {ops64 / 1e9:.3f} GOP f64)")
+    return results, dual
 
 
 def attention_work(ids, b, h, d, elem_bytes):
@@ -369,6 +516,124 @@ def phase_kernels_attention(gen, dev):
     return res
 
 
+def packed_work(valid, b, h, d, elem_bytes):
+    """(bytes, bf16 tensor-core operations) packed attention needs on
+    this validity vector: qkv (3 H heads) read once, out (H heads) written
+    once, valid once; 4 D operations (QK^T and PV, multiply and add) per
+    (real query, valid key) pair. Pad query rows are sliced off by the
+    caller, so the least work leaves them out."""
+    n, real = valid.numel(), int(valid.sum())
+    return (4 * b * h * n * d * elem_bytes + 4 * n,
+            4 * d * b * h * real * real)
+
+
+def view_valid(views, dev):
+    """DA3_L's validity vector: ``views`` sequences of 2305 real tokens,
+    each padded to the ViT's multiple, back to back (one run of pads per
+    view)."""
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.ops import \
+        attention_packed as apk
+
+    n_tok = -(-DA3_TOKENS // apk.PAD_MULTIPLE) * apk.PAD_MULTIPLE
+    return (torch.arange(n_tok, device=dev) < DA3_TOKENS).repeat(views)
+
+
+def phase_kernels_packed(dev):
+    """B4 against its plain version in float32 on the same inputs, at the
+    two shapes a DA3_L window gives it: cross-view (1, 52 x 2368, 48, 64)
+    and per-view (52, 2368, 48, 64), 2305 real tokens per view, in
+    bfloat16 (the engine's type) and float32. Real query rows are held to
+    ``error_ratio`` <= 1 (float32: 2e-5 absolute; bfloat16: 2**-8 of each
+    value plus 2**-5 of the output's RMS); pad rows must be finite. In
+    bfloat16 it is timed beside its plain version, SDPA on (B, H, N, D)
+    views of the packed tensor with the key mask broadcast from
+    (1, 1, 1, N), and SDPA unmasked on the real tokens only."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from metric_depth_video_toolbox_tpu_torch.ops import \
+        attention_packed as apk
+
+    h, d = DA3_HEADS, DA3_HEAD_DIM
+    sm = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(4)
+    res = {}
+    for tag, b, views in (("cross_view", 1, DA3_VIEWS),
+                          ("per_view", DA3_VIEWS, 1)):
+        valid = view_valid(views, dev)
+        n = valid.numel()
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            qkv4 = torch.randn(b, n, 3 * h, d, generator=gen,
+                               device=dev).to(dtype)
+            out = apk.packed_flash_attention(qkv4, valid, h, sm)
+            ref = apk.packed_flash_attention_plain(qkv4.float(), valid, h,
+                                                   sm)
+            torch.cuda.synchronize()
+            r = {"max_abs_err": float((out[:, valid].float()
+                                       - ref[:, valid]).abs().max()),
+                 "error_ratio": apk.error_ratio(out[:, valid],
+                                                ref[:, valid])}
+            if not r["error_ratio"] <= 1 \
+                    or not bool(torch.isfinite(out).all()):
+                raise RuntimeError(
+                    f"packed_flash_attention {tag} {name}: kernel vs plain "
+                    f"max abs err {r['max_abs_err']}, error ratio "
+                    f"{r['error_ratio']} (limit 1)")
+            del ref, out
+            msg = ""
+            if dtype == torch.bfloat16:
+                cross = tag == "cross_view"
+                r["ms"] = gpu_ms(lambda: apk.packed_flash_attention(
+                    qkv4, valid, h, sm), 3 if cross else 10)
+                r["plain_ms"] = gpu_ms(
+                    lambda: apk.packed_flash_attention_plain(
+                        qkv4, valid, h, sm), 1)
+                nbytes, ops = packed_work(valid, b, h, d, 2)
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, \
+                    ops / BF16_TC_OPS_PER_S
+                r.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", bytes=nbytes, ops=ops)
+                # the library's call: q, k, v as strided (B, H, N, D) views
+                q, k, v = qkv4.reshape(b, n, 3, h, d).permute(
+                    2, 0, 3, 1, 4).unbind(0)
+                mask = valid[None, None, None, :]
+                # never the math backend: it would materialise the scores
+                # (485 GB at the cross-view shape)
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                                  SDPBackend.CUDNN_ATTENTION]):
+                    r["library_ms"] = gpu_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, scale=sm), 3)
+                qr, kr, vr = (t[:, :, valid] for t in (q, k, v))
+                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                  SDPBackend.CUDNN_ATTENTION,
+                                  SDPBackend.EFFICIENT_ATTENTION]):
+                    r["library_unmasked_ms"] = gpu_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qr, kr, vr, scale=sm), 3)
+                del q, k, v, qr, kr, vr
+                msg = (f"; kernel {r['ms']:.3f} ms, plain "
+                       f"{r['plain_ms']:.3f} ms, SDPA with the key mask "
+                       f"{r['library_ms']:.3f} ms, SDPA unmasked on the "
+                       f"real tokens {r['library_unmasked_ms']:.3f} ms, "
+                       f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}: "
+                       f"{ops / 1e12:.3f} TFLOP bf16, "
+                       f"{nbytes / 1e6:.1f} MB)")
+            del qkv4
+            res[f"{tag}_{name}"] = r
+            log(f"[kernels] packed_flash_attention {tag} ({b}, {n}, "
+                f"{3 * h}, {d}) {name}, {views} x {DA3_TOKENS} real tokens: "
+                f"kernel vs plain (float32) max abs err "
+                f"{r['max_abs_err']:.3e}, error ratio {r['error_ratio']:.3f}"
+                f" (limit 1), pad rows finite{msg}")
+    return res
+
+
 def phase_depth(gen, dev):
     import torch
 
@@ -440,6 +705,206 @@ def phase_stereo(metric, frames, gen, dev):
             f"movie config: {fps[name]:.3f} frames/s (u8 out on host); "
             f"hole share {hole_share:.4f}")
     return fps, batches, kept[0], kept[1]
+
+
+def phase_stereo_fused(gen, dev):
+    """The batch-8 1080p movie-configuration step on the synthetic scene
+    with ``fused_anchor_sweep``, timed in turns with the two-call step on
+    the same inputs. -> (fused frames/s, two-call frames/s, fused batches
+    run)"""
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.ops import codec
+    from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
+
+    depth, color = synth_scene(BATCH, gen, dev)
+    args = stereo_inputs(codec.encode_depth_frame(depth, 100.0), color)
+    cfgs = {"fused": movie_config(H, W, fused_anchor_sweep=True),
+            "two-call": movie_config(H, W)}
+    out = {k: stereo.stereo_step(cfg, *args) for k, cfg in cfgs.items()}
+    img, mask = out["fused"]["image"], out["fused"]["infill_mask"]
+    if img.shape != (BATCH, H, 2 * W, 3) or mask.shape != img.shape:
+        raise RuntimeError(f"fused stereo: image {img.shape}, mask "
+                           f"{mask.shape}")
+    hole = out["two-call"]["infill_mask"].max(-1) > 0
+    same = (img == out["two-call"]["image"]).all(-1)
+    # outside the two-call step's holes both routes render the main
+    # surface, equal up to the bitmaps' tile size: a blend of a valid and
+    # a culled depth can hit a plane that the single sweep's 64-row tile
+    # keeps active and the fused sweep's 32-row tile does not
+    share = float(same[~hole].mean())
+    if not share > 0.95 or not 0.0 < float(hole.mean()) < 0.5:
+        raise RuntimeError(f"fused stereo: {share:.4f} of the pixels "
+                           f"outside holes equal the two-call step's "
+                           f"(hole share {float(hole.mean()):.4f})")
+    runs, secs, batches = 4, {k: [] for k in cfgs}, 1
+    for k in ("two-call", "fused", "fused", "two-call"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            stereo.stereo_step(cfgs[k], *args)
+        secs[k].append(time.perf_counter() - t0)
+        batches += runs * (k == "fused")
+    fps = {k: runs * BATCH / min(v) for k, v in secs.items()}
+    log(f"[stereo] fused anchor sweep, synthetic scene, {runs} batches of "
+        f"{BATCH} at 1080p, in turns with the two-call step: fused "
+        f"{fps['fused']:.3f} frames/s, two-call {fps['two-call']:.3f} "
+        f"frames/s (best of 2 turns each; seconds per turn {secs}); "
+        f"{share:.5f} of the pixels outside holes equal")
+    return fps["fused"], fps["two-call"], batches
+
+
+def da3_config(impl):
+    import dataclasses
+
+    from metric_depth_video_toolbox_tpu_torch.models import da3
+
+    return dataclasses.replace(da3.DA3_L, vit=dataclasses.replace(
+        da3.DA3_L.vit, attention_impl=impl))
+
+
+def run_da3(eng, frames, what):
+    """One timed ``infer_video`` -> (depth, c2w, xfov, seconds, peak GiB);
+    fails on a wrong shape, a value that is not finite or a depth outside
+    [0, max_depth]."""
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    depth, c2w, xfov = eng.infer_video(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(frames)
+    if depth.shape != (n, H, W) or c2w.shape != (n, 4, 4) \
+            or xfov.shape != (n,):
+        raise RuntimeError(f"da3 {what}: shapes {depth.shape}, {c2w.shape}, "
+                           f"{xfov.shape}")
+    if not (np.isfinite(depth).all() and np.isfinite(c2w).all()
+            and np.isfinite(xfov).all()):
+        raise RuntimeError(f"da3 {what}: depth, c2w or xfov not finite")
+    if depth.min() < 0 or depth.max() > eng.cfg.max_depth \
+            or not depth.max() > 0:
+        raise RuntimeError(f"da3 {what}: depth {depth.min()}..{depth.max()} "
+                           f"outside (0, max_depth]")
+    if not ((xfov > 0) & (xfov < 180)).all():
+        raise RuntimeError(f"da3 {what}: xfov {xfov.min()}..{xfov.max()}")
+    return depth, c2w, xfov, dt, peak
+
+
+def phase_da3(dev, zero_counts, counts):
+    """DA3_L, bfloat16, on a synthetic 46-frame 1080p clip (two windows of
+    52 views at 504 x 896): first through B4 (``flash_packed``), then the
+    same weights through the default attention, and the two compared.
+    -> (results, the flash_packed engine, the clip)"""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import da3
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    _, frames = synth_scene(DA3_FRAMES, gen, dev, shift_px=6)
+    frames = frames.cpu().numpy()
+    t0 = time.perf_counter()
+    eng = da3.DA3Engine(cfg=da3_config("flash_packed"), device=dev,
+                        rng_seed=0)
+    work = eng._work_hw(H, W)
+    model = eng.model(work)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[da3] DA3_L at {work[0]}x{work[1]}: {n_params / 1e6:.1f} M "
+        f"parameters drawn and moved in {time.perf_counter() - t0:.3f} s")
+    sdpa = da3.DA3Engine(cfg=da3_config("xla"), device=dev,
+                         params=model.state_dict())
+    res = {}
+    # the first run of each route pays cuDNN's algorithm search and the
+    # allocator's growth; the second is the measured one
+    for name, e in (("flash_packed", eng), ("sdpa", sdpa)):
+        run_da3(e, frames, f"{name} warm-up")
+        zero_counts()
+        depth, c2w, xfov, dt, peak = run_da3(e, frames, name)
+        launched = counts()
+        res[name] = {"depth": depth, "c2w": c2w, "xfov": xfov, "s": dt,
+                     "fps": DA3_FRAMES / dt, "peak_gib": peak,
+                     "launches": launched}
+        log(f"[da3] DA3_L 504 bf16 {name}, {DA3_FRAMES} frames 1080p (2 "
+            f"windows of {DA3_VIEWS} views, {DA3_TOKENS} tokens per view): "
+            f"{dt:.3f} s, {DA3_FRAMES / dt:.3f} frames/s; depth "
+            f"{depth.min():.3f}..{depth.max():.3f} m (mean "
+            f"{depth.mean():.3f}), xfov {xfov.min():.2f}..{xfov.max():.2f} "
+            f"deg; peak device memory {peak:.2f} GiB; launches {launched}")
+    want = {"packed_flash_attention": 2 * DA3_BLOCKS}
+    got = res["flash_packed"]["launches"]
+    if {k: v for k, v in got.items() if v} != want:
+        raise RuntimeError(f"da3 path: launches {got}, expected {want} (2 "
+                           f"windows x {DA3_BLOCKS} blocks) and no other "
+                           f"kernel")
+    if any(res["sdpa"]["launches"].values()):
+        raise RuntimeError(f"da3 default route launched a kernel of this "
+                           f"repository: {res['sdpa']['launches']}")
+    log(f"[main path] da3: packed_flash_attention launches: "
+        f"{got['packed_flash_attention']} = 2 windows x ({DA3_BLOCKS // 2} "
+        f"per-view + {DA3_BLOCKS // 2} cross-view blocks)")
+    # the two routes differ in where bf16 rounds inside attention only
+    a, b = res["flash_packed"], res["sdpa"]
+    scale = float(b["depth"].max())
+    d_max = float(np.abs(a["depth"] - b["depth"]).max()) / scale
+    d_mean = float(np.abs(a["depth"] - b["depth"]).mean()) / scale
+    fov = float(np.abs(a["xfov"] - b["xfov"]).max())
+    rot = float(np.abs(a["c2w"][:, :3, :3] - b["c2w"][:, :3, :3]).max())
+    log(f"[da3] flash_packed vs sdpa, same weights and clip: depth max "
+        f"abs diff {d_max:.3e} and mean abs diff {d_mean:.3e} of the "
+        f"largest depth (limits {DA3_ROUTE_MAX}, {DA3_ROUTE_MEAN}); xfov "
+        f"max diff {fov:.3e} deg, c2w rotation max diff {rot:.3e} (not "
+        f"limited: the SVD of random weights' ray maps amplifies)")
+    if d_max > DA3_ROUTE_MAX or d_mean > DA3_ROUTE_MEAN:
+        raise RuntimeError("da3: the two attention routes disagree")
+    for r in res.values():
+        del r["depth"], r["c2w"], r["xfov"]
+    return res, eng, frames
+
+
+def phase_reference_da3(dev):
+    """A narrow DA3 (DA3_TINY widths, float32, flash_packed, windows of 4
+    + 2 + 3) on the card (kernel B4, head dim 16, float32) against the
+    same weights on the CPU (plain version)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import da3
+
+    cfg = dataclasses.replace(
+        da3.DA3_TINY,
+        vit=dataclasses.replace(da3.DA3_TINY.vit, dtype="float32",
+                                attention_impl="flash_packed"),
+        dpt=dataclasses.replace(da3.DA3_TINY.dpt, dtype="float32"))
+    gen = torch.Generator().manual_seed(7)
+    _, frames = synth_scene(9, gen, "cpu", h=96, w=128, shift_px=2)
+    frames = frames.numpy()
+    kw = dict(cfg=cfg, images_per_batch=4, overlap=3, num_ref_frames=2,
+              resolution=84)
+    cpu = da3.DA3Engine(device="cpu", **kw)
+    card = da3.DA3Engine(device=dev, params=cpu.model(
+        cpu._work_hw(96, 128)).state_dict(), **kw)
+    want, got = cpu.infer_video(frames), card.infer_video(frames)
+    scale = float(np.abs(want[0]).max())
+    d = float(np.abs(got[0] - want[0]).max()) / scale
+    rot = float(np.abs(got[1][:, :3, :3] - want[1][:, :3, :3]).max())
+    trans = float(np.abs(got[1][:, :3, 3] - want[1][:, :3, 3]).max()
+                  / max(np.abs(want[1][:, :3, 3]).max(), 1e-6))
+    fov = float(np.abs(got[2] - want[2]).max())
+    log(f"[reference] narrow DA3 (DA3_TINY widths, f32, flash_packed), 9 "
+        f"frames 96x128 -> 84x112, 6 windows of 9 views, card vs CPU: "
+        f"depth max err {d:.3e} of its largest value, c2w rotation "
+        f"{rot:.3e}, translation {trans:.3e} of its largest, xfov "
+        f"{fov:.3e} deg (limits 1e-3, 1e-3, 1e-3, 1e-2); depth up to "
+        f"{scale:.3f}")
+    if d > 1e-3 or rot > 1e-3 or trans > 1e-3 or fov > 1e-2:
+        raise RuntimeError("reference: the card's DA3 disagrees with the "
+                           "CPU's")
 
 
 def infill_engine(dev, chunk=INFILL_FRAMES):
@@ -593,10 +1058,13 @@ def phase_reference(dev):
         raise RuntimeError("reference: the card disagrees with the CPU")
 
 
-# device kernels of the infill by kind, by substrings of their names (the
-# first kind that matches; cuDNN's convolutions are implicit GEMMs)
+# device kernels of the infill and of DA3 by kind, by substrings of their
+# names (the first kind that matches; cuDNN's convolutions are implicit
+# GEMMs)
 KINDS = (("B3 block-causal attention", ("bc_attn",)),
-         ("convolution (VAE)", ("conv", "fprop", "dgrad", "winograd")),
+         ("B4 packed attention", ("packed_attn",)),
+         ("library attention (SDPA)", ("flash", "fmha", "sdpa")),
+         ("convolution", ("conv", "fprop", "dgrad", "winograd")),
          ("GEMM (dense layers)", ("gemm", "nvjet", "cutlass")),
          ("copies", ("memcpy", "memset")))
 
@@ -609,11 +1077,12 @@ def kind_of(key):
     return "other (elementwise, norms, softmax, FFT, ...)"
 
 
-def phase_profile(metric, frames, infill, dev):
+def phase_profile(metric, frames, infill, da3, dev):
     """Where the time goes: the stereo step (device only, then with the
-    uint8 results copied to the host), the depth engine and one eye's
-    infill chunk, each under torch.profiler; the kernels with the most
-    device time, and for the infill the device time by kind."""
+    uint8 results copied to the host), the depth engine, one eye's infill
+    chunk and the DA3 clip (two windows), each under torch.profiler; the
+    kernels with the most device time, and for the infill and DA3 the
+    device time by kind."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -647,13 +1116,16 @@ def phase_profile(metric, frames, infill, dev):
     t0 = time.perf_counter()
     ieng.infill_chunk(*eye)
     t_infill = time.perf_counter() - t0
+    da3_eng, da3_frames, t_da3 = da3
     for name, fn, wall, reps in (
             ("stereo step", lambda: stereo.stereo_step(cfg, *args), t_host,
              2),
             ("depth engine (40 frames)", lambda: eng.infer_video(frames),
              t_depth, 2),
             (f"infill chunk (one eye, {INFILL_FRAMES} frames)",
-             lambda: ieng.infill_chunk(*eye), t_infill, 1)):
+             lambda: ieng.infill_chunk(*eye), t_infill, 1),
+            (f"DA3_L flash_packed ({DA3_FRAMES} frames, 2 windows)",
+             lambda: da3_eng.infer_video(da3_frames), t_da3, 1)):
         # the first profile pays the tracer's setup
         for _ in range(reps):
             with profile(activities=[ProfilerActivity.CPU,
@@ -729,6 +1201,38 @@ def phase_files(dev):
             f"(OpenCV {cv2.__version__}): {dt:.3f} s; infill (inspatio_world"
             f", WAN_TINY at 480x832) file to file: {dt_infill:.3f} s")
 
+        # DA3 (its own copy of the clip: an existing depth video is kept),
+        # then the fused stereo step on its depth video and FOV sidecar
+        clip3 = os.path.join(tmp, "clip_da3.mkv")
+        vio.save_rgb_video(frames.cpu().numpy(), clip3, 24)
+        t0 = time.perf_counter()
+        cli.main(["da3", "--color_video", clip3, "--model_size", "vitt",
+                  "--da3_resolution", "252", "--images_per_batch", "8",
+                  "--batch_overlap", "3", "--nr_of_ref_frames", "2"])
+        dt_da3 = time.perf_counter() - t0
+        depth3 = clip3 + "_depth.mkv"
+        from metric_depth_video_toolbox_tpu_torch.io import sidecar
+        xfovs = sidecar.load_xfovs(depth3 + "_xfovs.json")
+        c2w = sidecar.load_transformations(depth3 + "_transformations.json")
+        if xfovs.shape != (12,) or c2w.shape != (12, 4, 4):
+            raise RuntimeError(f"files: da3 sidecars {xfovs.shape}, "
+                               f"{c2w.shape}")
+        t0 = time.perf_counter()
+        cli.main(["stereo", "--depth_video", depth3, "--color_video", clip3,
+                  "--xfov_file", depth3 + "_xfovs.json", "--infill_mask",
+                  "--batch_size", "4", "--fused_anchor_sweep"])
+        dt_fused = time.perf_counter() - t0
+        for out in (depth3, depth3 + "_stereo.mkv",
+                    depth3 + "_stereo.mkv_infillmask.mkv"):
+            with vio.VideoReader(out) as r:
+                n, w = r.frame_count, r.width
+            if n != 12 or w != (480 if out == depth3 else 960):
+                raise RuntimeError(f"files: {out} has {n} frames of width "
+                                   f"{w}")
+        log(f"[files] da3 (DA3_TINY at 252x448, windows of 8 + 2 + 3) file "
+            f"to file with both sidecars: {dt_da3:.3f} s; stereo "
+            f"--fused_anchor_sweep on its depth and xfovs: {dt_fused:.3f} s")
+
 
 def main():
     try:
@@ -774,32 +1278,50 @@ def main():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    sweep = phase_kernels(gen, dev)
-    attention = phase_kernels_attention(gen, dev)
+    from metric_depth_video_toolbox_tpu_torch.ops import \
+        attention_packed as apk
+
+    tables = (ws.LAUNCHES, bcm.LAUNCHES, apk.LAUNCHES)
 
     def zero_counts():
-        ws.LAUNCHES["disparity_sweep"] = 0
-        bcm.LAUNCHES["block_causal_attention"] = 0
+        for table in tables:
+            for key in table:
+                table[key] = 0
 
     def counts():
-        return (ws.LAUNCHES["disparity_sweep"],
-                bcm.LAUNCHES["block_causal_attention"])
+        return {k: v for table in tables for k, v in table.items()}
+
+    def expect_counts(path, want, why):
+        got = counts()
+        if {k: v for k, v in got.items() if v} != want:
+            raise RuntimeError(f"{path}: kernel launches {got}, expected "
+                               f"{want} and no other ({why})")
+        log(f"[main path] {path}: launches {want}: {why}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sweep, dual = phase_kernels(gen, dev)
+    packed = phase_kernels_packed(dev)
+    attention = phase_kernels_attention(gen, dev)
 
     zero_counts()
     metric, frames, depth_fps = phase_depth(gen, dev)
     stereo_fps, batches, sbs, sbs_mask = phase_stereo(metric, frames, gen,
                                                       dev)
-    launches, bc_off_path = counts()
-    if launches != 2 * batches or bc_off_path:
-        raise RuntimeError(f"depth + stereo path: disparity_sweep launched "
-                           f"{launches} times, expected {2 * batches} (main "
-                           f"+ anchor per batch of {BATCH} frames x 2 "
-                           f"eyes); block_causal_attention {bc_off_path}, "
-                           f"expected 0")
-    log(f"[main path] depth + stereo: disparity_sweep launches: {launches} "
-        f"over {batches} batches: 2 per batch, each sweeping {BATCH} frames "
-        f"x 2 eyes = 4 sweeps per frame")
+    launches = 2 * batches
+    expect_counts("depth + stereo", {"disparity_sweep": launches},
+                  f"{batches} batches, main + anchor sweep per batch of "
+                  f"{BATCH} frames x 2 eyes = 4 sweeps per frame")
+    zero_counts()
+    fused_fps, two_call_fps, fused_batches = phase_stereo_fused(
+        torch.Generator(device=dev).manual_seed(5), dev)
+    dual_launches = counts()["disparity_sweep_dual"]
+    if dual_launches != fused_batches:
+        raise RuntimeError(f"fused stereo step: disparity_sweep_dual "
+                           f"launched {dual_launches} times over "
+                           f"{fused_batches} batches")
+    log(f"[main path] fused stereo step: disparity_sweep_dual launches: "
+        f"{dual_launches} over {fused_batches} batches: 1 per batch of "
+        f"{BATCH} frames x 2 eyes")
 
     # the infill's first chunk pays cuDNN's algorithm search and the
     # allocator's growth: one eye once before the measured run
@@ -815,24 +1337,26 @@ def main():
     zero_counts()
     infill_fps, infill_s, infill_peak = phase_infill(eng, drv, sbs, sbs_mask,
                                                      frames, dev)
-    sweep_off_path, bc_launches = counts()
-    want = 2 * 16 * 30
-    if bc_launches != want or sweep_off_path:
-        raise RuntimeError(f"infill path: block_causal_attention launched "
-                           f"{bc_launches} times, expected {want} (2 eyes x "
-                           f"16 DiT forwards x 30 layers); disparity_sweep "
-                           f"{sweep_off_path}, expected 0")
-    log(f"[main path] infill: block_causal_attention launches: "
-        f"{bc_launches} = 2 eyes x 16 DiT forwards (4 causal blocks x 4 "
-        f"steps) x 30 layers")
+    bc_launches = 2 * 16 * 30
+    expect_counts("infill", {"block_causal_attention": bc_launches},
+                  "2 eyes x 16 DiT forwards (4 causal blocks x 4 steps) x 30 "
+                  "layers")
+
+    da3_res, da3_eng, da3_frames = phase_da3(dev, zero_counts, counts)
 
     phase_reference(dev)
     phase_reference_infill(sbs, sbs_mask, frames, dev)
+    phase_reference_da3(dev)
     phase_files(dev)
-    phase_profile(metric, frames, (eng, eye), dev)
+    phase_profile(metric, frames, (eng, eye),
+                  (da3_eng, da3_frames, da3_res["flash_packed"]["s"]), dev)
 
     main_ = sweep["main"]
     bf16, prod = attention["bfloat16"], attention["production"]
+    cross, per_view = packed["cross_view_bfloat16"], \
+        packed["per_view_bfloat16"]
+    packed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "library_unmasked_ms", "max_abs_err", "error_ratio")
     kernels = [{
         "name": "disparity_sweep", "route": "cuda",
         "source": f"{PACKAGE}/csrc/disparity_sweep.cu",
@@ -846,6 +1370,17 @@ def main():
                                              "bound_ms", "bound_by",
                                              "active_share")}
                    for k, v in sweep.items()},
+    }, {
+        "name": "disparity_sweep_dual", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/disparity_sweep_dual.cu",
+        "replaces": "metric_depth_video_toolbox_tpu/ops/warp_pallas.py:107",
+        "launches": dual_launches,
+        "max_abs_err": dual["max_abs_err"],
+        "ms": dual["ms"], "plain_ms": dual["plain_ms"],
+        "bound_ms": dual["bound_ms"], "bound_by": dual["bound_by"],
+        "library_ms": None,
+        "shape": dual["shape"], "active_share": dual["active_share"],
+        "anchor_share": dual["anchor_share"],
     }, {
         "name": "block_causal_attention", "route": "cuda",
         "source": f"{PACKAGE}/csrc/block_causal_attention.cu",
@@ -865,7 +1400,29 @@ def main():
                        **{k: prod[k] for k in (
                            "ms", "plain_ms", "bound_ms", "bound_by",
                            "max_abs_err", "error_ratio")}},
+    }, {
+        "name": "packed_flash_attention", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/packed_flash_attention.cu",
+        "replaces":
+            "metric_depth_video_toolbox_tpu/ops/attention_pallas.py:80",
+        "launches": da3_res["flash_packed"]["launches"][
+            "packed_flash_attention"],
+        **{k: cross[k] for k in packed_keys if k != "library_unmasked_ms"},
+        "library_unmasked_ms": cross["library_unmasked_ms"],
+        "shape": f"cross-view (1, {DA3_VIEWS} x 2368, {3 * DA3_HEADS}, "
+                 f"{DA3_HEAD_DIM}) bfloat16, {DA3_TOKENS} real tokens per "
+                 f"view",
+        "max_abs_err_float32": packed["cross_view_float32"]["max_abs_err"],
+        "per_view": {"shape": f"({DA3_VIEWS}, 2368, {3 * DA3_HEADS}, "
+                              f"{DA3_HEAD_DIM}) bfloat16",
+                     **{k: per_view[k] for k in packed_keys},
+                     "max_abs_err_float32":
+                         packed["per_view_float32"]["max_abs_err"]},
     }]
+    log(json.dumps({"da3": {k: {kk: v[kk] for kk in ("s", "fps", "peak_gib")}
+                            for k, v in da3_res.items()},
+                    "fused_stereo_fps": fused_fps,
+                    "two_call_stereo_fps_in_turns": two_call_fps}))
     log(json.dumps({"depth_fps": depth_fps, "stereo_fps": stereo_fps,
                     "infill_sbs_fps": infill_fps, "infill_s": infill_s,
                     "infill_peak_gib": infill_peak}))

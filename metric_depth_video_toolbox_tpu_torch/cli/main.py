@@ -1,6 +1,7 @@
 """``mdvt-torch`` -- the port's entry point, multiplexing its tools.
 
   mdvt-torch depth     video_metric_convert (VDA engine)
+  mdvt-torch da3       DA3 multi-view depth + poses + xfovs
   mdvt-torch stereo    stereo_rerender (disparity-sweep path)
   mdvt-torch infill    SBS infill (--infill_engine inspatio_world)
 
@@ -14,10 +15,15 @@ import argparse
 import importlib
 import sys
 
+# subcommand -> (module, its entry function)
 SUBCOMMANDS = {
-    "depth": "metric_depth_video_toolbox_tpu_torch.cli.video_metric_convert",
-    "stereo": "metric_depth_video_toolbox_tpu_torch.cli.stereo_rerender",
-    "infill": "metric_depth_video_toolbox_tpu_torch.cli.infill",
+    "depth": ("metric_depth_video_toolbox_tpu_torch.cli."
+              "video_metric_convert", "main"),
+    "da3": ("metric_depth_video_toolbox_tpu_torch.cli.depth_engines",
+            "da3_main"),
+    "stereo": ("metric_depth_video_toolbox_tpu_torch.cli.stereo_rerender",
+               "main"),
+    "infill": ("metric_depth_video_toolbox_tpu_torch.cli.infill", "main"),
 }
 
 NOT_PORTED = ("mask", "convergence", "track", "align", "export", "movie",
@@ -37,7 +43,8 @@ def main(argv=None):
     if args.command in NOT_PORTED:
         raise SystemExit(f"mdvt-torch {args.command}: not ported yet "
                          "(see ROADMAP.md, queue A)")
-    importlib.import_module(SUBCOMMANDS[args.command]).main(rest)
+    module, entry = SUBCOMMANDS[args.command]
+    getattr(importlib.import_module(module), entry)(rest)
 
 
 if __name__ == "__main__":

@@ -23,8 +23,6 @@ _NOT_PORTED = {
                             "splat_points)",
     "do_basic_infill": "--do_basic_infill (ROADMAP A7: normal-march "
                        "infill)",
-    "fused_anchor_sweep": "--fused_anchor_sweep (ROADMAP B2: "
-                          "disparity_sweep_dual)",
     "profile": "--profile",
 }
 
@@ -66,7 +64,7 @@ def build_parser(parser=None):
                    help="lossy codec output (smaller, lower quality)")
     p.add_argument("--fused_anchor_sweep", action="store_true",
                    help="render main surface + edge anchors in one fused "
-                        "pass (not ported yet)")
+                        "sweep")
     p.add_argument("--mask_video", type=str,
                    help="foreground mask; switches to background-"
                         "accumulation rendering")
@@ -112,7 +110,7 @@ def run(args, device=None):
         green_and_black_infill_mask=args.green_and_black_infill_mask,
         create_sbs_depth=args.create_sbs_depth_video,
         num_planes=args.num_planes, compressed=args.compressed,
-        device=device)
+        fused_anchor_sweep=args.fused_anchor_sweep, device=device)
     print(f"Processing complete. Output saved to: {out}")
     return out
 

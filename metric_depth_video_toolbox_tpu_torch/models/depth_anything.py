@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -51,6 +52,19 @@ class DepthAnything(nn.Module):
             else:
                 out = torch.clamp(out, 0.0, c.max_depth)
         return out
+
+
+def patch_center_rays(xfov_deg, gh, gw, yfov_deg=None):
+    """Unit camera-ray directions at patch centers for known-intrinsics
+    conditioning: (gh, gw, 3) float32 numpy."""
+    xf = np.tan(np.radians(xfov_deg) / 2.0)
+    yf = np.tan(np.radians(yfov_deg) / 2.0) if yfov_deg else xf * gh / gw
+    u = (np.arange(gw) + 0.5) / gw * 2.0 - 1.0
+    v = (np.arange(gh) + 0.5) / gh * 2.0 - 1.0
+    xx, yy = np.meshgrid(u * xf, v * yf)
+    rays = np.stack([xx, yy, np.ones_like(xx)], axis=-1)
+    return (rays / np.linalg.norm(rays, axis=-1, keepdims=True)
+            ).astype(np.float32)
 
 
 def working_resolution(h, w, input_size, patch):

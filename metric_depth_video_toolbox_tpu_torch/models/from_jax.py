@@ -12,7 +12,8 @@ the layout changes of each leaf:
   ``modulation``, ``head_modulation``, ``prompt_tokens`` as they are.
 
 Covers ViT, DPTHead, DPTHeadTemporal, VideoDepthAnything, DepthAnything,
-and Wan's WanDiT, WanVAEEncoder and WanVAEDecoder (RMSNorm ``scale`` and
+DA3 (``backbone``, ``head.depth``, ``head.ray``, ``ray_embed``), and Wan's
+WanDiT, WanVAEEncoder and WanVAEDecoder (RMSNorm ``scale`` and
 FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale).
 The tree's leaves are taken as numpy arrays, so this module needs no JAX.
 """

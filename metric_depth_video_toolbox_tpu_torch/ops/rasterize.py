@@ -96,6 +96,63 @@ def _bilinear_gather(img, u, v, fill=0.0):
             + fv * ((1 - fu) * t10 + fu * t11))
 
 
+def _rotation_taps(r, k, b, h, w, dev):
+    """Source coordinates (u, v) and depth divisor of the resample that
+    removes rotation r (B, 3, 3) exactly: the source direction of target
+    pixel (x, y) is R^T [dx, dy, 1]."""
+    fx, fy = k[:, 0, 0], k[:, 1, 1]
+    cx, cy = k[:, 0, 2], k[:, 1, 2]
+
+    def col(a):
+        return a[:, None, None]
+    xs = (torch.arange(w, dtype=torch.float32, device=dev)[None]
+          - cx[:, None]) / fx[:, None]
+    ys = (torch.arange(h, dtype=torch.float32, device=dev)[None]
+          - cy[:, None]) / fy[:, None]
+    dx = xs[:, None, :].expand(b, h, w)
+    dy = ys[:, :, None].expand(b, h, w)
+    sx_d = col(r[:, 0, 0]) * dx + col(r[:, 1, 0]) * dy + col(r[:, 2, 0])
+    sy_d = col(r[:, 0, 1]) * dx + col(r[:, 1, 1]) * dy + col(r[:, 2, 1])
+    sz_d = col(r[:, 0, 2]) * dx + col(r[:, 1, 2]) * dy + col(r[:, 2, 2])
+    return (sx_d / sz_d * col(fx) + col(cx), sy_d / sz_d * col(fy) + col(cy),
+            sz_d)
+
+
+def _plane_set(depth_rot, fx, tx, num_planes, max_disparity, conv_inv_z,
+               min_depth, tol_scale):
+    """Uniform inverse-depth planes across the rot-frame depth range of
+    depth_rot (B, H, W), and each plane's disparity for the x-translation
+    tx (B,), with the convergence plane (inverse depth conv_inv_z) landing
+    at zero disparity. -> (inv_near, d_inv (B,); plane_z, plane_tol,
+    disp_int, disp_frac (B, P))."""
+    dev = depth_rot.device
+    inside = depth_rot > min_depth
+    inf = torch.full_like(depth_rot, math.inf)
+    z_near = torch.clamp(torch.where(inside, depth_rot, inf).amin((1, 2)),
+                         min=min_depth)
+    z_far = torch.maximum(torch.where(inside, depth_rot, -inf).amax((1, 2)),
+                          z_near * 1.001)
+    inv_near = 1.0 / z_near
+    inv_far = 1.0 / z_far
+    d_inv = (inv_near - inv_far) / (num_planes - 1)
+    ids = torch.arange(num_planes, dtype=torch.float32, device=dev)
+    plane_z = 1.0 / (inv_near[:, None] - d_inv[:, None] * ids[None])
+    plane_tol = tol_scale * plane_z * plane_z * d_inv[:, None] + 1e-4
+
+    conv = torch.as_tensor(conv_inv_z, dtype=torch.float32, device=dev)
+    conv = conv.reshape(-1, 1) if conv.ndim else conv
+    disp = -fx[:, None] * tx[:, None] * (1.0 / plane_z - conv)
+    disp = torch.clamp(disp, -(max_disparity - 2.0), max_disparity - 2.0)
+    disp_floor = torch.floor(disp)
+    return (inv_near, d_inv, plane_z.contiguous(), plane_tol.contiguous(),
+            disp_floor.to(torch.int32), (disp - disp_floor).contiguous())
+
+
+def _planar_pad(img, pads):
+    """(B, H, W, C) -> channel-planar (B, C, H, W + pads), zero-padded."""
+    return torch.nn.functional.pad(img.permute(0, 3, 1, 2), pads).contiguous()
+
+
 def stereo_sweep_warp(depth, color, k, transform, num_planes=128,
                       remove_edges=True, edge_angle_deg=89.0,
                       max_disparity=256, neutralize_rotation=True,
@@ -113,77 +170,98 @@ def stereo_sweep_warp(depth, color, k, transform, num_planes=128,
     b, h, w = depth.shape
     dev = depth.device
     depth = depth.to(torch.float32)
-    r = transform[:, :3, :3]
-    t = transform[:, :3, 3]
 
     if edge is None:
         if remove_edges:
-            edge = cell_edge_mask(geo.unproject_depth(depth, k))
+            edge = cell_edge_mask(geo.unproject_depth(depth, k),
+                                  edge_angle_deg)
         else:
             edge = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
     valid_src = depth > min_depth
-    fx, fy = k[:, 0, 0], k[:, 1, 1]
-    cx, cy = k[:, 0, 2], k[:, 1, 2]
-    culled = torch.where(edge | ~valid_src, torch.zeros_like(depth), depth)
-
+    depth_rot = torch.where(edge | ~valid_src, torch.zeros_like(depth), depth)
+    color_rot = color.to(torch.float32)
     if neutralize_rotation:
-        def col(a):
-            return a[:, None, None]
-        xs = (torch.arange(w, dtype=torch.float32, device=dev)[None]
-              - cx[:, None]) / fx[:, None]
-        ys = (torch.arange(h, dtype=torch.float32, device=dev)[None]
-              - cy[:, None]) / fy[:, None]
-        dx = xs[:, None, :].expand(b, h, w)
-        dy = ys[:, :, None].expand(b, h, w)
-        sx_d = col(r[:, 0, 0]) * dx + col(r[:, 1, 0]) * dy + col(r[:, 2, 0])
-        sy_d = col(r[:, 0, 1]) * dx + col(r[:, 1, 1]) * dy + col(r[:, 2, 1])
-        sz_d = col(r[:, 0, 2]) * dx + col(r[:, 1, 2]) * dy + col(r[:, 2, 2])
-        u_s = sx_d / sz_d * col(fx) + col(cx)
-        v_s = sy_d / sz_d * col(fy) + col(cy)
-        depth_rot = _bilinear_gather(culled, u_s, v_s, fill=0.0) / sz_d
-        color_rot = _bilinear_gather(color.to(torch.float32), u_s, v_s,
-                                     fill=0.0)
-    else:
-        depth_rot = culled
-        color_rot = color.to(torch.float32)
+        u_s, v_s, sz_d = _rotation_taps(transform[:, :3, :3], k, b, h, w, dev)
+        depth_rot = _bilinear_gather(depth_rot, u_s, v_s, fill=0.0) / sz_d
+        color_rot = _bilinear_gather(color_rot, u_s, v_s, fill=0.0)
 
-    # plane set: uniform inverse depth across the rot-frame depth range
-    inside = depth_rot > min_depth
-    inf = torch.full_like(depth_rot, math.inf)
-    z_near = torch.clamp(torch.where(inside, depth_rot, inf).amin((1, 2)),
-                         min=min_depth)
-    z_far = torch.maximum(torch.where(inside, depth_rot, -inf).amax((1, 2)),
-                          z_near * 1.001)
-    inv_near = 1.0 / z_near
-    inv_far = 1.0 / z_far
-    d_inv = (inv_near - inv_far) / (num_planes - 1)
-    ids = torch.arange(num_planes, dtype=torch.float32, device=dev)
-    plane_z = 1.0 / (inv_near[:, None] - d_inv[:, None] * ids[None])
-    plane_tol = tol_scale * plane_z * plane_z * d_inv[:, None] + 1e-4
-
-    # horizontal image translation: the convergence plane lands at zero
-    # disparity
-    conv = torch.as_tensor(conv_inv_z, dtype=torch.float32, device=dev)
-    conv = conv.reshape(-1, 1) if conv.ndim else conv
-    disp = -fx[:, None] * t[:, 0, None] * (1.0 / plane_z - conv)
-    disp = torch.clamp(disp, -(max_disparity - 2.0), max_disparity - 2.0)
-    disp_floor = torch.floor(disp)
-    disp_int = disp_floor.to(torch.int32)
-    disp_frac = disp - disp_floor
-
+    inv_near, d_inv, plane_z, plane_tol, disp_int, disp_frac = _plane_set(
+        depth_rot, k[:, 0, 0], transform[:, 0, 3], num_planes, max_disparity,
+        conv_inv_z, min_depth, tol_scale)
     pad_left, pad_right = warp_sweep.pad_widths(w, max_disparity)
     pads = (pad_left, pad_right)
-    depth_pad = torch.nn.functional.pad(depth_rot, pads)
-    color_pad = torch.nn.functional.pad(
-        color_rot.permute(0, 3, 1, 2), pads).contiguous()
     active = warp_sweep.plane_activity(depth_rot, inv_near, d_inv,
                                        num_planes)
 
     best_z, out_color, found = warp_sweep.disparity_sweep(
-        depth_pad, color_pad, disp_int, disp_frac.contiguous(),
-        plane_z.contiguous(), plane_tol.contiguous(), num_planes, pad_left,
+        torch.nn.functional.pad(depth_rot, pads), _planar_pad(color_rot, pads),
+        disp_int, disp_frac, plane_z, plane_tol, num_planes, pad_left,
         active)
     return WarpResult(color=out_color,
                       depth=torch.where(found, best_z,
                                         torch.full_like(best_z, INF_DEPTH)),
                       mask=found, edge_mask=edge & valid_src)
+
+
+def stereo_sweep_warp_dual(depth, color, extra, k, transform,
+                           num_planes=128, edge_angle_deg=89.0,
+                           max_disparity=256, neutralize_rotation=True,
+                           conv_inv_z=0.0, min_depth=1e-2, tol_scale=1.6,
+                           edge=None):
+    """The stereo sweep and the edge-anchor sweep in one kernel pass.
+
+    The movie-configuration stereo path renders two surfaces per eye: the
+    main (edge-culled) surface, and an anchor layer of the culled
+    silhouette pixels that seeds the infill with color and normals. Both
+    share the projection, so the edge-only depth rides as a second depth
+    stream of :func:`warp_sweep.disparity_sweep_dual`: ``color`` goes to
+    whichever surface hit and ``extra`` (B, H, W, E; e.g. encoded normals)
+    to the anchor surface only. The plane set comes from the main depth
+    alone, exactly as in :func:`stereo_sweep_warp`, so the main surface is
+    bit-equal to the single sweep's; the anchors are swept over the full
+    plane set.
+
+    Returns (WarpResult main, anchor_color (B, H, W, C), anchor_extra
+    (B, H, W, E), anchor_mask (B, H, W) bool).
+    """
+    b, h, w = depth.shape
+    dev = depth.device
+    depth = depth.to(torch.float32)
+
+    if edge is None:
+        edge = cell_edge_mask(geo.unproject_depth(depth, k), edge_angle_deg)
+    valid_src = depth > min_depth
+    zero = torch.zeros_like(depth)
+    main_depth = torch.where(edge | ~valid_src, zero, depth)
+    edge_depth = torch.where(edge & valid_src, depth, zero)
+    color_f = color.to(torch.float32)
+    extra_f = extra.to(torch.float32)
+    if neutralize_rotation:
+        u_s, v_s, sz_d = _rotation_taps(transform[:, :3, :3], k, b, h, w, dev)
+        main_depth = _bilinear_gather(main_depth, u_s, v_s, fill=0.0) / sz_d
+        edge_depth = _bilinear_gather(edge_depth, u_s, v_s, fill=0.0) / sz_d
+        color_f = _bilinear_gather(color_f, u_s, v_s, fill=0.0)
+        extra_f = _bilinear_gather(extra_f, u_s, v_s, fill=0.0)
+
+    inv_near, d_inv, plane_z, plane_tol, disp_int, disp_frac = _plane_set(
+        main_depth, k[:, 0, 0], transform[:, 0, 3], num_planes,
+        max_disparity, conv_inv_z, min_depth, tol_scale)
+    pad_left, pad_right = warp_sweep.pad_widths(w, max_disparity)
+    pads = (pad_left, pad_right)
+    act_m, act_e = (warp_sweep.plane_activity(
+        d, inv_near, d_inv, num_planes,
+        block_rows=warp_sweep.DUAL_BLOCK_ROWS)
+        for d in (main_depth, edge_depth))
+
+    best_z, out_color, found, a_color, a_extra, a_found = \
+        warp_sweep.disparity_sweep_dual(
+            torch.nn.functional.pad(main_depth, pads),
+            torch.nn.functional.pad(edge_depth, pads),
+            _planar_pad(color_f, pads), _planar_pad(extra_f, pads),
+            disp_int, disp_frac, plane_z, plane_tol, act_m, act_e,
+            num_planes, pad_left)
+    main = WarpResult(color=out_color,
+                      depth=torch.where(found, best_z,
+                                        torch.full_like(best_z, INF_DEPTH)),
+                      mask=found, edge_mask=edge & valid_src)
+    return main, a_color, a_extra, a_found

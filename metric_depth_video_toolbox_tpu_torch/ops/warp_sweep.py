@@ -1,13 +1,15 @@
-"""Disparity-sweep stereo warp (port of ``ops/warp_pallas.py`` B1).
+"""Disparity-sweep stereo warp (port of ``ops/warp_pallas.py`` B1, B2).
 
 :func:`disparity_sweep` launches the hand-written CUDA kernel
 ``csrc/disparity_sweep.cu`` on CUDA tensors and runs
 :func:`disparity_sweep_plain`, the same function as a per-plane PyTorch
-loop, on CPU tensors. There is no fallback between the two: a CUDA tensor
-launches the kernel or raises.
+loop, on CPU tensors. :func:`disparity_sweep_dual` (the fused main +
+edge-anchor sweep) does the same with ``csrc/disparity_sweep_dual.cu`` and
+:func:`disparity_sweep_dual_plain`. There is no fallback between a kernel
+and its plain version: a CUDA tensor launches the kernel or raises.
 
 Every argument carries a leading batch axis (frames x eyes); the plane
-vectors and the activity bitmap are per batch element.
+vectors and the activity bitmaps are per batch element.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import torch
 INF_DEPTH = 3.0e38
 LANE = 128
 BLOCK_ROWS = 64   # the JAX kernel's row tile; the activity bitmap's unit
+DUAL_BLOCK_ROWS = 32   # the JAX dual kernel's row tile, its bitmaps' unit
 MARGIN = 4        # planes of dilation in the bitmap: tolerance + lerp
 
 # kernel launches by wrapper name; each wrapper adds one per launch
-LAUNCHES = {"disparity_sweep": 0}
+LAUNCHES = {"disparity_sweep": 0, "disparity_sweep_dual": 0}
 
 
 def pad_widths(width, max_disparity):
@@ -31,26 +34,27 @@ def pad_widths(width, max_disparity):
     return pad_left, pad_left + 2 * LANE
 
 
-def plane_activity(depth, inv_near, d_inv, num_planes):
+def plane_activity(depth, inv_near, d_inv, num_planes,
+                   block_rows=BLOCK_ROWS):
     """Per-(row-tile, plane) activity bitmap for the sweep.
 
     depth (B, H, W); inv_near, d_inv (B,). A plane is active in a
-    BLOCK_ROWS-row tile when some valid source depth of the tile buckets
-    into it (uniform inverse depth bins), dilated by MARGIN planes.
+    ``block_rows``-row tile when some valid source depth of the tile
+    buckets into it (uniform inverse depth bins), dilated by MARGIN planes.
     -> (B, ntiles, P) int32, equal to the JAX package's bit-packed
     formulation.
     """
     b, h, w = depth.shape
-    ntiles = -(-h // BLOCK_ROWS)
-    d = torch.nn.functional.pad(depth, (0, 0, 0, ntiles * BLOCK_ROWS - h))
+    ntiles = -(-h // block_rows)
+    d = torch.nn.functional.pad(depth, (0, 0, 0, ntiles * block_rows - h))
     valid = d > 1e-3
     inv = torch.where(valid, 1.0 / torch.clamp(d, min=1e-6),
                       torch.zeros_like(d))
     q = torch.round((inv_near[:, None, None] - inv) / d_inv[:, None, None])
     q = torch.where(valid, q, torch.zeros_like(q))
     bins = torch.clamp(q, 0, num_planes - 1).to(torch.int64)
-    tile = torch.arange(ntiles * BLOCK_ROWS, device=depth.device) \
-        // BLOCK_ROWS
+    tile = torch.arange(ntiles * block_rows, device=depth.device) \
+        // block_rows
     batch = torch.arange(b, device=depth.device)
     slot = ((batch[:, None, None] * ntiles + tile[None, :, None])
             * num_planes + bins)
@@ -64,7 +68,7 @@ def plane_activity(depth, inv_near, d_inv, num_planes):
 
 
 def _check_args(depth_pad, color_pad, disp_int, disp_frac, plane_z,
-                plane_tol, num_planes, active):
+                plane_tol, num_planes, active, block_rows=BLOCK_ROWS):
     if depth_pad.ndim != 3 or color_pad.ndim != 4:
         raise ValueError("depth_pad must be (B, H, WP) and color_pad "
                          "(B, C, H, WP)")
@@ -72,7 +76,7 @@ def _check_args(depth_pad, color_pad, disp_int, disp_frac, plane_z,
     if color_pad.shape[0] != b or color_pad.shape[2:] != (h, wp):
         raise ValueError(f"color_pad {tuple(color_pad.shape)} does not "
                          f"match depth_pad {tuple(depth_pad.shape)}")
-    ntiles = -(-h // BLOCK_ROWS)
+    ntiles = -(-h // block_rows)
     want = {"disp_int": (disp_int, torch.int32, (b, num_planes)),
             "disp_frac": (disp_frac, torch.float32, (b, num_planes)),
             "plane_z": (plane_z, torch.float32, (b, num_planes)),
@@ -88,20 +92,22 @@ def _check_args(depth_pad, color_pad, disp_int, disp_frac, plane_z,
 
 
 def disparity_sweep_plain(depth_pad, color_pad, disp_int, disp_frac, plane_z,
-                          plane_tol, num_planes, pad_left, active=None):
+                          plane_tol, num_planes, pad_left, active=None,
+                          block_rows=BLOCK_ROWS):
     """The sweep as a per-plane PyTorch loop (the kernel's plain version).
 
-    Same arguments and results as :func:`disparity_sweep`; every blend
-    (:func:`blend`) and test is the kernel's arithmetic in separate
-    elementwise ops, so on the card it equals the kernel bit for bit."""
+    Same arguments and results as :func:`disparity_sweep` (``block_rows``:
+    the rows per tile of ``active``); every blend (:func:`blend`) and test
+    is the kernel's arithmetic in separate elementwise ops, so on the card
+    it equals the kernel bit for bit."""
     b, h, wp = depth_pad.shape
     c = color_pad.shape[1]
     w = wp - (2 * pad_left + 2 * LANE)
     dev = depth_pad.device
     if active is None:
-        active = torch.ones((b, -(-h // BLOCK_ROWS), num_planes),
+        active = torch.ones((b, -(-h // block_rows), num_planes),
                             dtype=torch.int32, device=dev)
-    row_tile = torch.arange(h, device=dev) // BLOCK_ROWS
+    row_tile = torch.arange(h, device=dev) // block_rows
     x = torch.arange(w, device=dev)
     best_z = torch.full((b, h, w), INF_DEPTH, dtype=torch.float32,
                         device=dev)
@@ -198,13 +204,114 @@ def disparity_sweep(depth_pad, color_pad, disp_int, disp_frac, plane_z,
     return out_z, out_color, found
 
 
-def _library():
+def disparity_sweep_dual_plain(depth_pad, edepth_pad, shared_pad, extra_pad,
+                               disp_int, disp_frac, plane_z, plane_tol,
+                               active_main, active_edge, num_planes,
+                               pad_left):
+    """The fused sweep's plain version: the two streams share planes and
+    disparities and nothing else, so it is :func:`disparity_sweep_plain`
+    once per stream over bitmaps of DUAL_BLOCK_ROWS-row tiles, the main
+    stream carrying the shared payload and the edge stream the shared and
+    the extra one. Same arguments and results as
+    :func:`disparity_sweep_dual`."""
+    n_shared = shared_pad.shape[1]
+    best_z, main_color, found = disparity_sweep_plain(
+        depth_pad, shared_pad, disp_int, disp_frac, plane_z, plane_tol,
+        num_planes, pad_left, active_main, block_rows=DUAL_BLOCK_ROWS)
+    _, edge_pay, efound = disparity_sweep_plain(
+        edepth_pad, torch.cat([shared_pad, extra_pad], dim=1), disp_int,
+        disp_frac, plane_z, plane_tol, num_planes, pad_left, active_edge,
+        block_rows=DUAL_BLOCK_ROWS)
+    return (best_z, main_color, found, edge_pay[..., :n_shared].contiguous(),
+            edge_pay[..., n_shared:].contiguous(), efound)
+
+
+def disparity_sweep_dual(depth_pad, edepth_pad, shared_pad, extra_pad,
+                         disp_int, disp_frac, plane_z, plane_tol,
+                         active_main, active_edge, num_planes, pad_left):
+    """Run the fused main + edge-anchor plane sweep.
+
+    depth_pad:  (B, H, W + pads) f32 main (edge-culled) source depth,
+                0 = invalid, padded as for :func:`disparity_sweep`.
+    edepth_pad: (B, H, W + pads) f32 edge-only source depth, 0 = invalid.
+    shared_pad: (B, S, H, W + pads) f32 payload of both surfaces (color).
+    extra_pad:  (B, E, H, W + pads) f32 payload of the edge surface only
+                (encoded normals).
+    disp_int/disp_frac, plane_z/plane_tol: (B, P), one plane set for both.
+    active_main/active_edge: (B, ntiles, P) int32 from
+                :func:`plane_activity` with ``block_rows=DUAL_BLOCK_ROWS``.
+
+    Returns (best_z (B, H, W), main_color (B, H, W, S), main_found bool,
+    edge_color (B, H, W, S), edge_extra (B, H, W, E), edge_found bool);
+    best_z is INF_DEPTH where the main surface has no hit. CPU tensors run
+    :func:`disparity_sweep_dual_plain`; CUDA tensors launch the kernel (and
+    count the launch in ``LAUNCHES``).
+    """
+    tensors = [depth_pad, edepth_pad, shared_pad, extra_pad, disp_int,
+               disp_frac, plane_z, plane_tol, active_main, active_edge]
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"arguments on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return disparity_sweep_dual_plain(*tensors, num_planes, pad_left)
+    if dev.type != "cuda":
+        raise ValueError(f"disparity_sweep_dual runs on cuda or cpu, not "
+                         f"{dev}")
+    if extra_pad.ndim != 4 or extra_pad.dtype != torch.float32 \
+            or extra_pad.shape[0] != depth_pad.shape[0] \
+            or extra_pad.shape[2:] != depth_pad.shape[1:]:
+        raise ValueError(f"extra_pad {extra_pad.dtype} "
+                         f"{tuple(extra_pad.shape)} does not match "
+                         f"depth_pad {tuple(depth_pad.shape)}")
+    for name, t, like in (("edepth_pad", edepth_pad, depth_pad),
+                          ("active_edge", active_edge, active_main)):
+        if t.dtype != like.dtype or t.shape != like.shape:
+            raise ValueError(f"{name}: expected {like.dtype} "
+                             f"{tuple(like.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    b, h, wp, s, ntiles = _check_args(
+        depth_pad, shared_pad, disp_int, disp_frac, plane_z, plane_tol,
+        num_planes, active_main, block_rows=DUAL_BLOCK_ROWS)
+    e = extra_pad.shape[1]
+    w = wp - (2 * pad_left + 2 * LANE)
+    if w <= 0:
+        raise ValueError(f"padded width {wp} leaves no image columns")
+    args = [t.contiguous() for t in tensors]
+    f32 = {"dtype": torch.float32, "device": dev}
+    out_z = torch.empty((b, h, w), **f32)
+    main_color = torch.empty((b, h, w, s), **f32)
+    found = torch.empty((b, h, w), dtype=torch.bool, device=dev)
+    edge_color = torch.empty((b, h, w, s), **f32)
+    edge_extra = torch.empty((b, h, w, e), **f32)
+    efound = torch.empty((b, h, w), dtype=torch.bool, device=dev)
+    outs = (out_z, main_color, found, edge_color, edge_extra, efound)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _library("disparity_sweep_dual").mdvt_disparity_sweep_dual(
+            *[t.data_ptr() for t in args], *[t.data_ptr() for t in outs],
+            b, h, w, wp, s, e, num_planes, pad_left, ntiles,
+            DUAL_BLOCK_ROWS, stream)
+    if rc != 0:
+        raise RuntimeError(f"disparity_sweep_dual kernel launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES["disparity_sweep_dual"] += 1
+    return outs
+
+
+# pointer and int argument counts of each kernel's C function (a stream
+# pointer follows the ints)
+_SIGNATURES = {"disparity_sweep": (10, 9), "disparity_sweep_dual": (16, 10)}
+
+
+def _library(name="disparity_sweep"):
     from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load("disparity_sweep")
-    fn = lib.mdvt_disparity_sweep
+    lib = cuda_build.load(name)
+    fn = getattr(lib, f"mdvt_{name}")
     if fn.restype is not ctypes.c_int or not fn.argtypes:
+        pointers, ints = _SIGNATURES[name]
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
     return lib

@@ -1,17 +1,20 @@
 """Depth estimation stage: color video -> RGB-encoded metric depth video
-(PyTorch port of the VDA engine of ``pipeline/depth.py``).
+(PyTorch port of the VDA and DA3 engines of ``pipeline/depth.py``).
 
 The VDA engine runs Video-Depth-Anything over overlapping windows,
 stitched, and makes the relative disparity metric with a closed-form
 scale/shift fit against a per-frame Depth-Anything metric anchor (or a
 reference depth video). Without weights the engine draws them from a
 seeded ``torch.Generator``; plumbing and throughput are the same.
+
+The DA3 engine (:class:`DA3PipelineEngine`, ``models.da3.DA3Engine``) runs
+multi-view windows and writes the depth video with its ``_xfovs.json`` and
+``_transformations.json`` sidecars.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Dict
 
 import numpy as np
@@ -32,27 +35,6 @@ def _downsample_bilinear(frames, out_hw):
     INTER_LINEAR for a reference depth video of another size)."""
     return F.interpolate(frames[:, None], size=tuple(out_hw),
                          mode="bilinear", align_corners=False)[:, 0]
-
-
-@torch.no_grad()
-def seeded_init(module, generator, layerscale_init=1.0):
-    """Draw a module's weights from ``generator`` with the JAX package's
-    initializers: LeCun-normal matrices and kernels, zero biases and cls
-    token, unit norm scales, N(0, 0.02) position embedding."""
-    for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "weight" and p.ndim >= 2:
-            fan_in = p[0].numel()
-            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-        elif leaf == "weight":
-            p.fill_(1.0)
-        elif leaf == "gamma":
-            p.fill_(layerscale_init)
-        elif leaf == "pos_embed":
-            p.normal_(0.0, 0.02, generator=generator)
-        else:
-            p.zero_()
-    return module
 
 
 ENGINES: Dict[str, Callable] = {}
@@ -138,7 +120,8 @@ class VDAEngine:
             for mod, sd in ((model, self._params),
                             (anchor, self._anchor_params)):
                 if sd is None:
-                    seeded_init(mod, gen, self.cfg.vit.layerscale_init)
+                    vit_mod.seeded_init(mod, gen,
+                                        self.cfg.vit.layerscale_init)
                 else:
                     mod.load_state_dict(sd, strict=True)
             self._models[work_hw] = (model.to(self.device).eval(),
@@ -209,9 +192,50 @@ def run_vda(color_video, max_depth=100.0, max_frames=-1, engine=None,
     return out
 
 
-_RUN_KEYS = ("max_depth", "max_frames", "reference_depth_video",
-             "target_fps")
-_ENGINE_CLASSES = {"vda": VDAEngine}
+class DA3PipelineEngine:
+    """DA3-class engine wrapper: depth + transformations + xfovs sidecars.
+    ``size`` picks the DA3 preset (default ViT-L), ``input_size`` the
+    working resolution; the other keywords go to
+    :class:`~..models.da3.DA3Engine` (``cfg=`` chooses the attention
+    route)."""
+
+    def __init__(self, max_depth=100.0, size=None, input_size=None,
+                 quantize=None, **kw):
+        from metric_depth_video_toolbox_tpu_torch.models import da3 as da3_mod
+
+        if quantize:
+            raise NotImplementedError("not ported yet: --quantize "
+                                      "(ROADMAP A13)")
+        if size == "tiny":
+            size = "vitt"
+        if size is not None:
+            kw.setdefault("cfg", da3_mod.preset(size))
+        if input_size is not None:
+            kw.setdefault("resolution", input_size)
+        self.engine = da3_mod.DA3Engine(**kw)
+        self.max_depth = max_depth
+
+
+@register_engine("da3")
+def run_da3(color_video, max_depth=100.0, max_frames=-1, engine=None, **kw):
+    """Color video -> ``<video>_depth.mkv`` + ``_xfovs.json`` +
+    ``_transformations.json``; returns the depth video's path."""
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+
+    eng = engine or DA3PipelineEngine(max_depth=max_depth, **kw)
+    frames, fps = vio.read_video_frames(color_video, max_frames=max_frames)
+    depth, c2w, xfovs = eng.engine.infer_video(frames)
+    out = color_video + "_depth.mkv"
+    vio.save_depth_video(np.clip(depth, 0, max_depth), out, fps, max_depth)
+    sidecar.save_xfovs(out + "_xfovs.json", xfovs)
+    sidecar.save_transformations(out + "_transformations.json", c2w)
+    return out
+
+
+_RUN_KEYS = ("max_depth", "max_frames", "reference_depth_video", "xfov",
+             "yfov", "target_fps")
+_ENGINE_CLASSES = {"vda": VDAEngine, "da3": DA3PipelineEngine}
 
 
 def run_batch(engine_name, videos_or_txt, **kw):
@@ -221,12 +245,17 @@ def run_batch(engine_name, videos_or_txt, **kw):
 
     if engine_name not in ENGINES:
         raise NotImplementedError(f"not ported yet: depth engine "
-                                  f"{engine_name!r} (ROADMAP A10, A13)")
+                                  f"{engine_name!r} (ROADMAP A13)")
     fn = ENGINES[engine_name]
     run_kw = {k: v for k, v in kw.items() if k in _RUN_KEYS}
     eng_kw = {k: v for k, v in kw.items() if k not in _RUN_KEYS}
     if "max_depth" in kw:
         eng_kw["max_depth"] = kw["max_depth"]
+    if engine_name == "da3":
+        # the engine itself needs the FOV (ray conditioning)
+        for k in ("xfov", "yfov"):
+            if kw.get(k) is not None:
+                eng_kw[k] = kw[k]
     outs = []
     eng = None
     for v in expand_batch(videos_or_txt):

@@ -3,8 +3,9 @@
 
 One step renders both eyes of a batch of frames as one batch of
 frames x eyes: decode depth -> master-FOV scale -> edge cull -> per-eye
-disparity sweep (main surface, then the edge-anchor layer) -> infill-mask
-normals (border defaults + diffusion inpaint + masked blur) -> SBS u8.
+disparity sweep (main surface, then the edge-anchor layer; or both in one
+fused sweep) -> infill-mask normals (border defaults + diffusion inpaint +
+masked blur) -> SBS u8.
 Host <-> device traffic is uint8 in, uint8 out.
 
 Output naming matches the JAX package: ``<depth_video>_stereo.mkv`` and
@@ -30,7 +31,7 @@ from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 class StereoConfig:
     """Configuration of the stereo renderer: the JAX package's fields for
     the sweep path at the source size (its Touchly/VR180 outputs, basic
-    infill, fused anchor sweep and other warps are not ported yet)."""
+    infill and other warps are not ported yet)."""
     width: int
     height: int
     max_depth: float = 100.0
@@ -45,6 +46,10 @@ class StereoConfig:
     # 'shift' = horizontal image translation folded into the plane
     # disparities; 'rotate' = exact toe-in through a rotation resample
     convergence_mode: str = "shift"
+    # render the main surface and the edge-anchor layer in one fused sweep
+    # (rasterize.stereo_sweep_warp_dual, anchors over the full plane set)
+    # instead of a second anchor-only sweep at num_planes // 4
+    fused_anchor_sweep: bool = False
 
 
 def _border_default_normals(mask_img, hole):
@@ -93,33 +98,45 @@ def render_eye(depth, color, k, transform, eye_shift_m, conv_angle,
     m_sweep = m_eye if rotate_conv else shift
     sweep_conv = 0.0 if rotate_conv else conv_inv_z
 
-    res = rasterize.stereo_sweep_warp(
-        depth, color, k, m_sweep, num_planes=cfg.num_planes,
-        remove_edges=cfg.remove_edges, neutralize_rotation=rotate_conv,
-        conv_inv_z=sweep_conv, edge=edge_pre)
+    anchors = cfg.place_edge_points and cfg.remove_edges
+    fused = cfg.fused_anchor_sweep and anchors
+    if anchors:
+        normals = normals_pre if normals_pre is not None \
+            else geo.normals_from_depth(depth, k)
+        normals_enc = (torch.einsum("nij,nhwj->nhwi", m_eye[:, :3, :3],
+                                    normals) + 1.0) / 2.0
+    if fused:
+        res, a_color, a_extra, a_found = rasterize.stereo_sweep_warp_dual(
+            depth, color, normals_enc, k, m_sweep, num_planes=cfg.num_planes,
+            neutralize_rotation=rotate_conv, conv_inv_z=sweep_conv,
+            edge=edge_pre)
+    else:
+        res = rasterize.stereo_sweep_warp(
+            depth, color, k, m_sweep, num_planes=cfg.num_planes,
+            remove_edges=cfg.remove_edges, neutralize_rotation=rotate_conv,
+            conv_inv_z=sweep_conv, edge=edge_pre)
     hole = ~res.mask
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     image = torch.where(hole[..., None], zero, res.color)
     green = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
     mask_img = torch.where(hole[..., None], green, zero)
 
-    if cfg.place_edge_points and cfg.remove_edges:
+    if anchors:
         # edge anchors: the culled silhouette pixels re-rendered into the
-        # holes at num_planes//4 planes, carrying color + encoded normals
-        normals = normals_pre if normals_pre is not None \
-            else geo.normals_from_depth(depth, k)
-        normals_t = torch.einsum("nij,nhwj->nhwi", m_eye[:, :3, :3],
-                                 normals)
-        edge_depth = torch.where(res.edge_mask, depth, zero)
-        payload = torch.cat([color, (normals_t + 1.0) / 2.0], dim=-1)
-        eres = rasterize.stereo_sweep_warp(
-            edge_depth, payload, k, m_sweep,
-            num_planes=max(cfg.num_planes // 4, 8), remove_edges=False,
-            neutralize_rotation=rotate_conv, conv_inv_z=sweep_conv)
-        write = (eres.mask & hole)[..., None]
-        image = torch.where(write, eres.color[..., :3], image)
+        # holes, carrying color + encoded normals: out of the fused sweep,
+        # or from a second sweep of the edge-only depth at num_planes//4
+        if not fused:
+            eres = rasterize.stereo_sweep_warp(
+                torch.where(res.edge_mask, depth, zero),
+                torch.cat([color, normals_enc], dim=-1), k, m_sweep,
+                num_planes=max(cfg.num_planes // 4, 8), remove_edges=False,
+                neutralize_rotation=rotate_conv, conv_inv_z=sweep_conv)
+            a_color, a_extra = eres.color[..., :3], eres.color[..., 3:]
+            a_found = eres.mask
+        write = (a_found & hole)[..., None]
+        image = torch.where(write, a_color, image)
         if not cfg.green_and_black_infill_mask:
-            a_n = _normalized(eres.color[..., 3:] * 2.0 - 1.0)
+            a_n = _normalized(a_extra * 2.0 - 1.0)
             mask_img = torch.where(write, (a_n + 1.0) / 2.0, mask_img)
 
     if cfg.make_infill_mask and not cfg.green_and_black_infill_mask:
@@ -259,8 +276,7 @@ def render_stereo_video(depth_video, color_video=None, output=None,
             (render_as_pointcloud, "point-cloud rendering (ROADMAP A3)"),
             (vr180 or touchly0 or touchly1,
              "Touchly/VR180 outputs (ROADMAP A4)"),
-            (do_basic_infill, "basic infill (ROADMAP A7)"),
-            (fused_anchor_sweep, "the fused anchor sweep (ROADMAP B2)")):
+            (do_basic_infill, "basic infill (ROADMAP A7)")):
         if given:
             raise NotImplementedError(f"not ported yet: {what}")
     device = resolve_device(device)
@@ -282,7 +298,8 @@ def render_stereo_video(depth_video, color_video=None, output=None,
         make_infill_mask=infill_mask,
         green_and_black_infill_mask=green_and_black_infill_mask,
         num_planes=num_planes,
-        has_convergence=convergence_depths is not None)
+        has_convergence=convergence_depths is not None,
+        fused_anchor_sweep=fused_anchor_sweep)
     output = output or (depth_video + "_stereo.mkv")
     if convergence_depths is not None:
         convergence_depths = smooth_convergence(convergence_depths)

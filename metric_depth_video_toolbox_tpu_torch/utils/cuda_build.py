@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``build/lib<name>-<hash>.so`` at the repository root,
-keyed by the source's content and flags), loaded with ``ctypes``. Nothing
+keyed by the content of the source and of the ``csrc`` headers it includes,
+and by the flags), loaded with ``ctypes``. Nothing
 is built when a module is imported: a wrapper calls :func:`load` on its
 first launch; :func:`build` compiles several sources at once.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,12 +26,15 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 # nvcc flags of the sources that need their own (others take
-# COMMON_FLAGS). The disparity sweep is held bit for bit against its plain
-# version, so nothing may be contracted into a fused multiply-add there;
-# the attention kernel is held to a tolerance and keeps the default.
+# COMMON_FLAGS). The disparity sweeps are held bit for bit against their
+# plain versions, so nothing may be contracted into a fused multiply-add
+# there; the attention kernels are held to a tolerance and keep the default.
+_NO_FMAD = COMMON_FLAGS[:4] + ["-fmad=false"] + COMMON_FLAGS[4:]
 NVCC_FLAGS = {
-    "disparity_sweep": COMMON_FLAGS[:4] + ["-fmad=false"] + COMMON_FLAGS[4:],
+    "disparity_sweep": _NO_FMAD,
+    "disparity_sweep_dual": _NO_FMAD,
 }
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.MULTILINE)
 
 _lock = threading.RLock()
 _loaded = {}      # name -> ctypes.CDLL
@@ -47,8 +52,10 @@ def _nvcc():
 def library_path(name):
     """-> where ``csrc/<name>.cu``'s library is (or will be) built."""
     flags = NVCC_FLAGS.get(name, COMMON_FLAGS)
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
+    source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in _INCLUDE.findall(source):
+        source += (CSRC_DIR / header.decode()).read_bytes()
+    digest = hashlib.sha256(source + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

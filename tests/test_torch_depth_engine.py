@@ -154,8 +154,10 @@ def test_unported_engine_options_raise():
         tdepth.VDAEngine(quantize="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="A16"):
         tdepth.VDAEngine(data_parallel=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tdepth.run_batch("da3", "x.mp4")
+    with pytest.raises(NotImplementedError, match="A13"):
+        tdepth.run_batch("single_frame", "x.mp4")
+    with pytest.raises(NotImplementedError, match="A13"):
+        tdepth.DA3PipelineEngine(quantize="int8", device="cpu")
 
 
 def test_depth_cli_flags_and_defaults_match():

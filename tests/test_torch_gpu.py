@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from metric_depth_video_toolbox_tpu_torch.ops import attention_packed as apk
 from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
 from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
 
@@ -79,6 +80,78 @@ def test_disparity_sweep_rejects_bad_arguments(cuda):
         ws.disparity_sweep(*args, 1, 0)
 
 
+def dual_sweep_args(cuda, n_shared=3, n_extra=3, num_planes=128):
+    """Three scenes whose depth splits into a main stream and a sparse
+    edge stream (the columns beside each depth step), with both bitmaps.
+    -> (dual arguments, the single sweep's arguments for the main stream)"""
+    rng = np.random.default_rng(12)
+    h, w = 200, 320
+    cases = [scene_planes(rng, h, w, num_planes) for _ in range(3)]
+
+    def stack(i):
+        return torch.from_numpy(np.stack([c[i] for c in cases])).to(cuda)
+    d = stack(0)
+    step = torch.zeros_like(d, dtype=torch.bool)
+    step[:, :, 1:] = (d[:, :, 1:] - d[:, :, :-1]).abs() > 1.0
+    step[:, :, :-1] |= step[:, :, 1:].clone()
+    main = torch.where(step, torch.zeros_like(d), d)
+    edge = torch.where(step, d, torch.zeros_like(d))
+    disp = stack(5)
+    pad_l, pad_r = ws.pad_widths(w, 256)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (pad_l, pad_r))
+    shared = pad(torch.rand(3, n_shared, h, w, device=cuda))
+    extra = pad(torch.rand(3, n_extra, h, w, device=cuda))
+    planes = (torch.floor(disp).to(torch.int32), disp - torch.floor(disp),
+              stack(3), stack(4))
+    acts = [ws.plane_activity(t, stack(1), stack(2), num_planes,
+                              block_rows=ws.DUAL_BLOCK_ROWS)
+            for t in (main, edge)]
+    dual = (pad(main), pad(edge), shared, extra, *planes, *acts, num_planes,
+            pad_l)
+    single = (pad(main), shared, *planes, num_planes, pad_l,
+              ws.plane_activity(main, stack(1), stack(2), num_planes))
+    return dual, single
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shared,n_extra", [(3, 3), (1, 2), (3, 0)])
+def test_disparity_sweep_dual_kernel_matches_plain(cuda, n_shared, n_extra):
+    """The fused CUDA kernel equals its plain version bit for bit on all
+    six outputs, its main surface equals the single sweep's kernel on the
+    main stream under the same bitmap, and it counts one launch."""
+    dual, single = dual_sweep_args(cuda, n_shared, n_extra)
+    before = ws.LAUNCHES["disparity_sweep_dual"]
+    got = ws.disparity_sweep_dual(*dual)
+    torch.cuda.synchronize()
+    assert ws.LAUNCHES["disparity_sweep_dual"] == before + 1
+    want = ws.disparity_sweep_dual_plain(*dual)
+    assert want[2].float().mean() > 0.8 and want[5].float().mean() > 0.005
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    # the single sweep's bitmap has 64-row tiles: the same bitmap in the
+    # fused sweep's 32-row tiles is each of its rows twice
+    coarse = single[-1].repeat_interleave(2, dim=1)[
+        :, :dual[8].shape[1]].contiguous()
+    got = ws.disparity_sweep_dual(*dual[:8], coarse, *dual[9:])
+    for a, b in zip(got[:3], ws.disparity_sweep(*single)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_disparity_sweep_dual_rejects_bad_arguments(cuda):
+    dual, _ = dual_sweep_args(cuda)
+    bad = list(dual)
+    bad[1] = bad[1][:, :-1]
+    with pytest.raises(ValueError, match="edepth_pad"):
+        ws.disparity_sweep_dual(*bad)
+    bad = list(dual)
+    bad[3] = bad[3].double()
+    with pytest.raises(ValueError, match="extra_pad"):
+        ws.disparity_sweep_dual(*bad)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,block", [(1000, 64, 150), (777, 128, 100),
@@ -120,31 +193,38 @@ B3_FAULTS = {
 }
 
 
-@pytest.fixture(scope="module")
-def b3_variants(tmp_path_factory):
-    """-> {fault: ctypes library} of B3 with each planted fault, all
-    built at once in a temporary directory."""
+def build_variants(source, faults, tmp):
+    """-> {fault: ctypes library} of ``csrc/<source>.cu`` with each planted
+    fault (text, its replacement), all built at once in ``tmp`` beside
+    copies of the headers."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import ctypes
 
     from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
 
-    src = (cuda_build.CSRC_DIR / "block_causal_attention.cu").read_text()
-    tmp = tmp_path_factory.mktemp("b3_faults")
-    for fault, (old, new) in B3_FAULTS.items():
+    src = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+    for header in cuda_build.CSRC_DIR.glob("*.cuh"):
+        (tmp / header.name).write_text(header.read_text())
+    for fault, (old, new) in faults.items():
         text = src.replace(old, new) if old else src
         assert (text != src) == bool(old), fault
-        (tmp / f"b3_{fault}.cu").write_text(text)
+        (tmp / f"{fault}.cu").write_text(text)
     patch = pytest.MonkeyPatch()
     patch.setattr(cuda_build, "CSRC_DIR", tmp)
     patch.setattr(cuda_build, "BUILD_DIR", tmp / "build")
     try:
-        cuda_build.build([f"b3_{f}" for f in B3_FAULTS])
-        return {f: ctypes.CDLL(str(cuda_build.library_path(f"b3_{f}")))
-                for f in B3_FAULTS}
+        cuda_build.build(list(faults))
+        return {f: ctypes.CDLL(str(cuda_build.library_path(f)))
+                for f in faults}
     finally:
         patch.undo()
+
+
+@pytest.fixture(scope="module")
+def b3_variants(tmp_path_factory):
+    return build_variants("block_causal_attention", B3_FAULTS,
+                          tmp_path_factory.mktemp("b3_faults"))
 
 
 @pytest.mark.gpu
@@ -198,6 +278,125 @@ def test_block_causal_rejects_bad_arguments(cuda):
     q = torch.zeros(1, 1, 8, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         bcm.block_causal_attention(q, q, q, ids, 1.0)
+
+
+def view_valid(views, n_real, device):
+    """The validity vector of ``views`` concatenated sequences of n_real
+    real tokens, each padded to the ViT's multiple."""
+    n_tok = -(-n_real // apk.PAD_MULTIPLE) * apk.PAD_MULTIPLE
+    return (torch.arange(n_tok, device=device) < n_real).repeat(views)
+
+
+def packed_valid(pattern, n, device):
+    if pattern == "all":
+        return torch.ones(n, dtype=torch.bool, device=device)
+    if pattern == "tail":
+        return torch.arange(n, device=device) < n - 37
+    if pattern == "leading":        # the first 130 keys are pads
+        return torch.arange(n, device=device) >= 130
+    if pattern == "holes":          # interleaved runs, one all-pad tile
+        idx = torch.arange(n, device=device)
+        return ((idx % 97) < 61) & ~((idx >= 256) & (idx < 384))
+    raise ValueError(pattern)
+
+
+def check_packed(qkv4, valid, heads, sm):
+    """Kernel vs the plain version in float32 on the same inputs: real
+    query rows within ``error_ratio``'s limit, every row finite."""
+    got = apk.packed_flash_attention(qkv4, valid, heads, sm)
+    torch.cuda.synchronize()
+    want = apk.packed_flash_attention_plain(qkv4.float(), valid, heads, sm)
+    assert got.shape == want.shape and got.dtype == qkv4.dtype
+    assert torch.isfinite(got).all()
+    return apk.error_ratio(got[:, valid], want[:, valid])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,d,pattern", [
+    (2, 1000, 3, 64, "holes"), (1, 777, 16, 64, "tail"),
+    (3, 333, 4, 16, "leading"), (2, 640, 2, 128, "all"),
+    (1, 2113, 5, 32, "holes")])
+def test_packed_attention_kernel_matches_plain(cuda, dtype, b, n, h, d,
+                                               pattern):
+    """Ragged N, any head count, interleaved pads, a leading run of pads
+    and an all-pad key tile: the kernel, reading q, k, v in place from the
+    packed tensor, equals the plain version within ``error_ratio``'s limit
+    (float32 2e-5; bfloat16 2**-8 of each value plus 2**-5 of the output's
+    RMS) on the real rows, pad rows are finite, and it counts one
+    launch."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    qkv4 = torch.randn(b, n, 3 * h, d, generator=gen, device=cuda).to(dtype)
+    before = apk.LAUNCHES["packed_flash_attention"]
+    ratio = check_packed(qkv4, packed_valid(pattern, n, cuda), h, d ** -0.5)
+    assert apk.LAUNCHES["packed_flash_attention"] == before + 1
+    assert ratio <= 1, ratio
+
+
+@pytest.mark.gpu
+def test_packed_attention_no_valid_key_gives_zeros(cuda):
+    qkv4 = torch.randn(1, 100, 6, 32, device=cuda)
+    none = torch.zeros(100, dtype=torch.bool, device=cuda)
+    got = apk.packed_flash_attention(qkv4, none, 2, 1.0)
+    assert torch.equal(got, torch.zeros_like(got))
+    assert torch.equal(got, apk.packed_flash_attention_plain(qkv4, none, 2,
+                                                             1.0))
+
+
+# planted faults of csrc/packed_flash_attention.cu
+B4_FAULTS = {
+    "b4_unchanged": ("", ""),
+    "b4_validity_ignored": (
+        "        if (!full && kok[nt * 8 + 2 * t + (e & 1)] == 0) val = "
+        "neg_inf();\n", ""),
+    # query tile 100 of (b, h) 0 leaves out its second key tile
+    "b4_one_key_tile_skipped": (_TILE_LANDED, _TILE_LANDED + (
+        "    if (cur == 1 && blockIdx.x == 100 && blockIdx.y == 0) {\n"
+        "      __syncthreads(); cur = nxt; continue;\n    }\n")),
+}
+
+
+@pytest.fixture(scope="module")
+def b4_variants(tmp_path_factory):
+    return build_variants("packed_flash_attention", B4_FAULTS,
+                          tmp_path_factory.mktemp("b4_faults"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", list(B4_FAULTS))
+def test_packed_attention_tolerance_fails_planted_faults(cuda, b4_variants,
+                                                         monkeypatch, fault):
+    """Four DA3_L views in one cross-view sequence (1, 4 x 2368, 48, 64),
+    bfloat16, 2305 real tokens per view: ``error_ratio``'s limit passes the
+    kernel built unchanged and fails each planted fault of its source."""
+    from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
+
+    monkeypatch.setattr(cuda_build, "load", lambda name: b4_variants[fault])
+    valid = view_valid(4, 2305, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    qkv4 = torch.randn(1, valid.numel(), 48, 64, generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    ratio = check_packed(qkv4, valid, 16, 0.125)
+    print(f"B4 {fault}: error ratio {ratio:.3f}")
+    assert (ratio <= 1) == (fault == "b4_unchanged"), ratio
+
+
+@pytest.mark.gpu
+def test_packed_attention_rejects_bad_arguments(cuda):
+    ok = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        apk.packed_flash_attention(torch.zeros(1, 8, 3, 12, device=cuda),
+                                   ok, 1, 1.0)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        apk.packed_flash_attention(
+            torch.zeros(1, 8, 3, 16, device=cuda, dtype=torch.float16), ok,
+            1, 1.0)
+    with pytest.raises(ValueError, match="3 \\* 2"):
+        apk.packed_flash_attention(torch.zeros(1, 8, 3, 16, device=cuda),
+                                   ok, 2, 1.0)
+    with pytest.raises(ValueError, match="valid must be"):
+        apk.packed_flash_attention(torch.zeros(1, 8, 3, 16, device=cuda),
+                                   ok[:4], 1, 1.0)
 
 
 @pytest.mark.gpu

@@ -74,6 +74,24 @@ eng = infill_diffusion.CausalInfillEngine(cfg=wan.WAN_TINY, work_hw=(32, 64),
 res = infill_diffusion.infill_sbs_frames(sbs, hole, eng, mono=sbs[:, :, :64],
                                          mirror_left=False, drift_correct=True)
 assert res.shape == sbs.shape and (res[~hole] == sbs[~hole]).all()
+import dataclasses
+fused = stereo.stereo_step(dataclasses.replace(cfg, fused_anchor_sweep=True),
+                           rgb, col, k, torch.eye(4)[None],
+                           torch.full((1,), 2.0), torch.ones(1))
+assert fused["image"].shape == (1, 32, 128, 3)
+from metric_depth_video_toolbox_tpu_torch.models import da3
+from metric_depth_video_toolbox_tpu_torch.ops import attention_packed
+tiny = dataclasses.replace(da3.DA3_TINY, vit=dataclasses.replace(
+    da3.DA3_TINY.vit, attention_impl="flash_packed"))
+deng = da3.DA3Engine(cfg=tiny, images_per_batch=3, overlap=1,
+                     num_ref_frames=1, resolution=28, device="cpu")
+depth, c2w, fov = deng.infer_video(np.repeat(out["image"][:, :, :64], 5, 0))
+assert depth.shape == (5, 32, 64) and c2w.shape == (5, 4, 4)
+assert np.isfinite(depth).all() and np.isfinite(c2w).all()
+assert attention_packed.LAUNCHES == {"packed_flash_attention": 0}
+from metric_depth_video_toolbox_tpu_torch.cli import depth_engines
+assert depth_engines.build_da3_parser().parse_args(
+    ["--color_video", "x"]).model_size == "vitl"
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("OK")
 """

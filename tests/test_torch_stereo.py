@@ -87,6 +87,72 @@ def test_stereo_frame_movie_config_matches_jax(mode):
         np.testing.assert_allclose(g_[fin], w_[fin], rtol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["shift", "rotate"])
+def test_stereo_frame_fused_anchor_sweep_matches_jax(mode):
+    """The movie configuration with ``fused_anchor_sweep`` (32 planes):
+    the fused step against the JAX step run op by op, under the same uint8
+    budget; outside the holes the fused image is the two-call one."""
+    b, h, w = 2, 48, 64
+    depth, color = scene(7, b, h, w)
+    rgb = np.asarray(jcodec.encode_depth_frame(jnp.asarray(depth), 100.0))
+    k = np.asarray(jgeo.camera_matrix_from_fov(w, h, xfov_deg=60.0),
+                   np.float32)
+    kw = {"convergence_mode": mode, "num_planes": 32}
+    fused = dict(kw, fused_anchor_sweep=True)
+    step = jax.vmap(partial(jst.stereo_frame,
+                            cfg=movie_cfg(jst, h, w, **fused)),
+                    in_axes=(0, 0, None, None, None, None, None))
+    want = step(jnp.asarray(rgb), jnp.asarray(color), jnp.asarray(k),
+                jnp.asarray(k), jnp.eye(4), jnp.asarray(2.0),
+                jnp.asarray(1.0))
+    kt = torch.from_numpy(k.copy()).expand(b, 3, 3)
+    args = (torch.from_numpy(rgb.copy()), torch.from_numpy(color), kt, kt,
+            torch.eye(4).expand(b, 4, 4), torch.full((b,), 2.0),
+            torch.ones(b))
+    got = tst.stereo_frame(*args, movie_cfg(tst, h, w, **fused))
+    for key in ("image", "infill_mask"):
+        assert_u8_budget(got[key].numpy(), np.asarray(want[key]))
+    two_call = tst.stereo_frame(*args, movie_cfg(tst, h, w, **kw))
+    hole = two_call["infill_mask"].numpy().max(-1) > 0
+    assert 0 < hole.mean() < 0.2
+    # the fused sweep's activity bitmaps have 32-row tiles and the single
+    # sweep's 64-row ones; a blend of a valid and an invalid depth can hit
+    # a plane that only the coarser tile keeps active, so a few main-surface
+    # pixels may differ between the two routes (as in the JAX package)
+    for key in ("depth_left", "depth_right"):
+        assert (got[key] == two_call[key]).float().mean() > 0.97
+    same = (got["image"] == two_call["image"]).all(-1).numpy()
+    assert same[~hole].mean() > 0.97
+
+
+def test_fused_anchor_sweep_file_to_file_matches_jax(tmp_path):
+    """``mdvt-torch stereo --fused_anchor_sweep`` file to file against the
+    JAX package's ``render_stereo_video`` with the same flag."""
+    pytest.importorskip("cv2")
+    from metric_depth_video_toolbox_tpu.io import video as jvio
+    from metric_depth_video_toolbox_tpu_torch.io import video as tvio
+
+    depth, color = scene(8, b=3)
+    dpath = str(tmp_path / "clip_depth.mkv")
+    cpath = str(tmp_path / "clip.mkv")
+    jvio.save_depth_video(depth, dpath, 24, 100.0)
+    jvio.save_rgb_video(color, cpath, 24)
+    want = jst.render_stereo_video(
+        dpath, color_video=cpath, output=str(tmp_path / "jax.mkv"),
+        xfov=60.0, infill_mask=True, batch_size=2, fused_anchor_sweep=True,
+        num_planes=32)
+    args = tcli.build_parser().parse_args(
+        ["--depth_video", dpath, "--color_video", cpath, "--xfov", "60",
+         "--infill_mask", "--batch_size", "2", "--fused_anchor_sweep",
+         "--num_planes", "32"])
+    got = tcli.run(args, device="cpu")
+    for suffix in ("", "_infillmask.mkv"):
+        with tvio.VideoReader(got + suffix) as r:
+            g = r.read_all()
+        with tvio.VideoReader(want + suffix) as r:
+            assert_u8_budget(g, r.read_all())
+
+
 def test_border_default_normals_match():
     rng = np.random.default_rng(4)
     img = rng.random((20, 30, 3)).astype(np.float32)
@@ -116,8 +182,7 @@ def test_cli_flags_and_defaults_match(kind):
 
 @pytest.mark.parametrize("flag", ["--vr180", "--touchly0", "--touchly1",
                                   "--do_basic_infill",
-                                  "--render_as_pointcloud",
-                                  "--fused_anchor_sweep"])
+                                  "--render_as_pointcloud"])
 def test_unported_flags_raise(flag):
     args = tcli.build_parser().parse_args(
         ["--depth_video", "x.mkv", "--xfov", "60", flag])

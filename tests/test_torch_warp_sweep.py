@@ -6,8 +6,9 @@ see ``warp_sweep.blend``), so the two agree bit for bit: ``found``, best
 z and payload are held equal. ``stereo_sweep_warp`` computes its plane set
 with ops that round differently in XLA and PyTorch (1/z, tan): there
 ``found`` is held equal, z within 1e-5 relative and payload within 1e-6
-absolute. On the card the kernel equals the plain version bit for bit
-(tests/test_torch_gpu.py)."""
+absolute. The fused main + anchor sweep (``disparity_sweep_dual``) is held
+the same way against its Pallas kernel in interpret mode. On the card the
+kernels equal their plain versions bit for bit (tests/test_torch_gpu.py)."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 from metric_depth_video_toolbox_tpu.ops import geometry as jgeo
 from metric_depth_video_toolbox_tpu.ops import rasterize as jras
 from metric_depth_video_toolbox_tpu.ops import warp_pallas as wp
+from metric_depth_video_toolbox_tpu_torch.ops import geometry as tgeo
 from metric_depth_video_toolbox_tpu_torch.ops import rasterize as tras
 from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
 
@@ -207,6 +209,31 @@ def test_stereo_sweep_warp_matches_jax(rotate):
                                atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("dual", [False, True])
+def test_stereo_sweep_warp_honours_edge_angle(dual):
+    """``edge_angle_deg`` reaches the edge cull of both warps (the single
+    one used to ignore it): at 60 degrees the culled mask equals
+    ``cell_edge_mask`` at 60 and holds more pixels than at the default."""
+    rng = np.random.default_rng(8)
+    h, w = 32, 192
+    k = T(np.asarray(jgeo.camera_matrix_from_fov(w, h, xfov_deg=60.0),
+                     np.float32))
+    depth = T(piecewise_scene(rng, h, w) + 1.0)
+    color = T(rng.random((h, w, 3), np.float32))
+    m = T(np.asarray(jgeo.translation_matrix(-0.0315, 0., 0.), np.float32))
+
+    def edge_mask(**kw):
+        if dual:
+            return tras.stereo_sweep_warp_dual(
+                depth, color, color, k, m, num_planes=16, **kw)[0].edge_mask
+        return tras.stereo_sweep_warp(depth, color, k, m, num_planes=16,
+                                      **kw).edge_mask
+    want = tras.cell_edge_mask(tgeo.unproject_depth(depth, k), 60.0)
+    steep = edge_mask(edge_angle_deg=60.0)
+    assert torch.equal(steep, want)
+    assert steep.sum() > edge_mask().sum() > 0
+
+
 def test_stereo_sweep_warp_identity():
     h, w = 32, 192
     k = torch.from_numpy(np.asarray(
@@ -222,6 +249,119 @@ def test_stereo_sweep_warp_identity():
     assert (res.depth[0][mask] - 5.0).abs().max() < 0.2
     assert (res.color[0, ..., 1][mask] - color[0, ..., 1][mask]).abs() \
         .max() < 0.02
+
+
+# the scenes of the JAX package's test_dual_sweep_* cases: (h, w, far depth,
+# slab depth, slab columns)
+DUAL_SCENES = {"two_call": (48, 256, 8.0, 2.5, (90, 150)),
+               "anchor_seeds": (64, 256, 12.0, 2.0, (100, 160)),
+               "rotation": (48, 256, 10.0, 3.0, (120, 170))}
+
+
+def slab_scene(name):
+    h, w, far, near, (c0, c1) = DUAL_SCENES[name]
+    depth = np.full((h, w), far, np.float32)
+    depth[:, c0:c1] = near
+    return depth
+
+
+@pytest.mark.parametrize("scene,n_shared,n_extra,num_planes", [
+    ("two_call", 3, 3, 32), ("anchor_seeds", 3, 3, 24),
+    ("rotation", 1, 2, 16)])
+def test_disparity_sweep_dual_bit_equal(scene, n_shared, n_extra,
+                                        num_planes):
+    """The fused sweep's plain version equals the Pallas dual kernel
+    (interpret mode) bit for bit on all six outputs: the slab scenes of
+    the JAX package's dual-sweep tests with 1% grain, the two columns
+    beside each depth step as the edge stream, both 32-row bitmaps on; and
+    its main surface equals the single sweep's on the main stream."""
+    rng = np.random.default_rng(num_planes)
+    depth = slab_scene(scene)
+    depth *= 1 + 0.01 * rng.standard_normal(depth.shape).astype(np.float32)
+    h, w = depth.shape
+    step = np.zeros((h, w), bool)
+    step[:, 1:] = np.abs(depth[:, 1:] - depth[:, :-1]) > 1.0
+    step[:, :-1] |= step[:, 1:].copy()
+    main = np.where(step, 0, depth).astype(np.float32)
+    edge = np.where(step, depth, 0).astype(np.float32)
+    inv_near, d_inv, pz, tol, di, df = sweep_planes(main[main > 0],
+                                                    num_planes, conv=0.1)
+    pad_l, pad_r = wp.pad_widths(w, 256)
+    pads = ((0, 0), (pad_l, pad_r))
+    shared = np.pad(rng.random((n_shared, h, w), np.float32), ((0, 0),) + pads)
+    extra = np.pad(rng.random((n_extra, h, w), np.float32), ((0, 0),) + pads)
+    acts = [np.asarray(wp.plane_activity(jnp.asarray(d), inv_near, d_inv,
+                                         num_planes, block_rows=32))
+            for d in (main, edge)]
+    for d, a in zip((main, edge), acts):
+        got_act = ws.plane_activity(
+            T(d), torch.tensor([inv_near]), torch.tensor([d_inv]),
+            num_planes, block_rows=ws.DUAL_BLOCK_ROWS)[0].numpy()
+        np.testing.assert_array_equal(got_act, a)
+    assert 0 < acts[1].mean() <= acts[0].mean() < 1
+    args = (np.pad(main, pads), np.pad(edge, pads), shared, extra, di, df, pz,
+            tol, acts[0], acts[1])
+    want = wp.disparity_sweep_dual(*[jnp.asarray(a) for a in args],
+                                   num_planes=num_planes, pad_left=pad_l,
+                                   block_rows=32, interpret=True)
+    before = dict(ws.LAUNCHES)
+    got = ws.disparity_sweep_dual(*[T(a) for a in args], num_planes, pad_l)
+    assert ws.LAUNCHES == before                  # plain version, no launch
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w_))
+    assert got[2].float().mean() > 0.8 and got[5].any()
+    single = ws.disparity_sweep(
+        T(args[0]), T(shared), T(di), T(df), T(pz), T(tol), num_planes, pad_l,
+        ws.plane_activity(T(main), torch.tensor([inv_near]),
+                          torch.tensor([d_inv]), num_planes))
+    for g, s_ in zip(got[:3], single):
+        assert torch.equal(g, s_)
+
+
+@pytest.mark.parametrize("scene,rotate", [("two_call", False),
+                                          ("rotation", True)])
+def test_stereo_sweep_warp_dual_matches_jax(scene, rotate):
+    """``stereo_sweep_warp_dual`` against the JAX package's (Pallas kernel
+    in interpret mode) on its own dual-sweep scenes: masks equal, depth
+    within 1e-5 relative, payloads within 1e-6 absolute (the plane set's
+    1/z and the rotation resample round differently in XLA and PyTorch);
+    and the port's main surface equals its single sweep's bit for bit."""
+    rng = np.random.default_rng(3)
+    depth = slab_scene(scene)
+    h, w = depth.shape
+    k = np.asarray(jgeo.camera_matrix_from_fov(w, h, xfov_deg=60.0),
+                   np.float32)
+    color = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    extra = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    if rotate:
+        m = np.asarray(jgeo.rotation_y(np.radians(1.0))
+                       @ jgeo.translation_matrix(0.05, 0., 0.), np.float32)
+    else:
+        m = np.eye(4, dtype=np.float32)
+        m[0, 3] = 0.1
+    want = jras.stereo_sweep_warp_dual(
+        jnp.asarray(depth), jnp.asarray(color), jnp.asarray(extra),
+        jnp.asarray(k), jnp.asarray(m), num_planes=24,
+        neutralize_rotation=rotate, interpret=True)
+    got = tras.stereo_sweep_warp_dual(T(depth), T(color), T(extra), T(k),
+                                      T(m), num_planes=24,
+                                      neutralize_rotation=rotate)
+    mask = np.asarray(want[0].mask)
+    np.testing.assert_array_equal(got[0].mask[0].numpy(), mask)
+    np.testing.assert_array_equal(got[0].edge_mask[0].numpy(),
+                                  np.asarray(want[0].edge_mask))
+    np.testing.assert_array_equal(got[3][0].numpy(), np.asarray(want[3]))
+    assert mask.mean() > 0.8 and np.asarray(want[3]).any()
+    np.testing.assert_allclose(got[0].depth[0].numpy()[mask],
+                               np.asarray(want[0].depth)[mask], rtol=1e-5)
+    for g, w_ in ((got[0].color, want[0].color), (got[1], want[1]),
+                  (got[2], want[2])):
+        np.testing.assert_allclose(g[0].numpy(), np.asarray(w_), atol=1e-6,
+                                   rtol=0)
+    single = tras.stereo_sweep_warp(T(depth), T(color), T(k), T(m),
+                                    num_planes=24, neutralize_rotation=rotate)
+    for name in ("color", "depth", "mask", "edge_mask"):
+        assert torch.equal(getattr(got[0], name), getattr(single, name))
 
 
 def test_sweep_wrapper_rejects_other_devices():
