@@ -8,7 +8,8 @@ of which fails the run on error:
 
   1. build      nvcc builds every kernel under
                 metric_depth_video_toolbox_tpu_torch/csrc, one process per
-                source, all started together.
+                source, all started together; ptxas's registers, shared
+                memory and spills of every entry point are printed.
   2. kernels    each kernel's wrapper against its plain PyTorch version
                 on the card: the disparity sweep and the fused main +
                 anchor sweep on the stereo path's own 1080p inputs
@@ -20,7 +21,8 @@ of which fails the run on error:
                 its plain version and scaled_dot_product_attention with
                 the boolean block-causal mask, and at the production
                 chunk's shape (1, 12, 88920, 128), 19 causal blocks,
-                bfloat16; packed-qkv attention at DA3_L's cross-view shape
+                bfloat16, beside the same SDPA call (or its refusal);
+                packed-qkv attention at DA3_L's cross-view shape
                 (1, 52 x 2368, 48, 64) and per-view shape (52, 2368, 48,
                 64), 2305 real tokens per view, in bfloat16 and float32
                 (same tolerance, real query rows; pad rows finite), timed
@@ -65,7 +67,8 @@ of which fails the run on error:
                 and the DA3 clip under torch.profiler: device time, top
                 kernels.
 
-It then prints a JSON line of the kernels' launches, times and bounds,
+It then prints a JSON line of the kernels' launches, times, bounds,
+library times (and kernel / library ratios), registers and spilled bytes,
 the card's name and power limit, and last the device JSON line. Exits
 non-zero, printing no result, when no CUDA card is present or the port's
 package is not beside this script.
@@ -73,6 +76,7 @@ package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -273,6 +277,53 @@ def bound_ms(nbytes, f32_ops, f64_ops):
                                        else "operations")
 
 
+def ptxas_report(log):
+    """nvcc's -Xptxas -v output -> {mangled function: {"regs", "smem",
+    "spill_bytes"}} (spill stores plus spill loads, in bytes)."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"regs": None, "smem": 0, "spill_bytes": 0})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+# the kernel of each source that its main path launches, by a substring of
+# its mangled name: the sweeps, and the bf16 core at the main path's head
+# dim with the source's mask policy
+MAIN_PATH_FUNCTION = {
+    "disparity_sweep": "sweep_kernel",
+    "disparity_sweep_dual": "dual_sweep_kernel",
+    "block_causal_attention": "flash_sm90ILi128E",
+    "packed_flash_attention": "flash_sm90ILi64E",
+}
+
+
+def kernel_resources(report, name):
+    """-> {"regs", "spill_bytes"} of ``name``'s main-path kernel."""
+    for fn, r in report.get(name, {}).items():
+        if MAIN_PATH_FUNCTION[name] in fn:
+            return {"regs": r["regs"], "spill_bytes": r["spill_bytes"]}
+    raise RuntimeError(f"no ptxas report for {name}'s "
+                       f"{MAIN_PATH_FUNCTION[name]}")
+
+
 def movie_config(h, w, **kw):
     from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
 
@@ -463,9 +514,11 @@ def phase_kernels_attention(gen, dev):
     """B3 against its plain version in float32 on the same inputs: at the
     infill phase's shape in bfloat16 (the infill's type) and float32,
     timed beside the plain version and SDPA with the boolean (N, N)
-    block-causal mask; and at the production chunk's shape in bfloat16."""
+    block-causal mask; and at the production chunk's shape in bfloat16,
+    timed beside the same SDPA call (or its refusal, recorded)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
 
@@ -492,18 +545,31 @@ def phase_kernels_attention(gen, dev):
                         q, k, v, ids, sm), 2 if n == WAN_N else 1)
                 r["bound_ms"], r["bound_by"], r["bytes"], r["ops"] = \
                     attention_bound(ids, h, d)
-                if n == WAN_N:
-                    # the (N, N) mask of the production length takes 7.9 GB
-                    # and SDPA then falls back to materialising the scores
-                    mask = ids[None, :] <= ids[:, None]
-                    r["library_ms"] = gpu_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            q, k, v, attn_mask=mask, scale=sm), 5)
-                    del mask
+                # SDPA with the boolean (N, N) mask, PyTorch's own choice of
+                # backend as in earlier runs; at the production length the
+                # mask alone takes 7.9 GB, and the backend that would
+                # materialise the scores (380 GB) is left out
+                mask = ids[None, :] <= ids[:, None]
+                choice = contextlib.nullcontext() if n == WAN_N else \
+                    sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                                 SDPBackend.CUDNN_ATTENTION])
+                try:
+                    with choice:
+                        r["library_ms"] = gpu_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, attn_mask=mask, scale=sm),
+                            5 if n == WAN_N else 2)
+                except (RuntimeError, torch.OutOfMemoryError) as e:
+                    r["library_ms"] = None
+                    r["library_error"] = str(e).splitlines()[0][:300]
+                    torch.cuda.empty_cache()
+                del mask
                 msg = (f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f}"
                        f" ms" + (f", SDPA with the boolean mask "
                                  f"{r['library_ms']:.3f} ms"
-                                 if "library_ms" in r else "")
+                                 if r["library_ms"] is not None else
+                                 f", SDPA with the boolean mask refused: "
+                                 f"{r['library_error']}")
                        + f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}: "
                        f"{r['ops'] / 1e12:.3f} TFLOP bf16, "
                        f"{r['bytes'] / 1e6:.1f} MB)")
@@ -1061,8 +1127,8 @@ def phase_reference(dev):
 # device kernels of the infill and of DA3 by kind, by substrings of their
 # names (the first kind that matches; cuDNN's convolutions are implicit
 # GEMMs)
-KINDS = (("B3 block-causal attention", ("bc_attn",)),
-         ("B4 packed attention", ("packed_attn",)),
+KINDS = (("B3 block-causal attention", ("causalmask", "bc_attn")),
+         ("B4 packed attention", ("packedmask", "packed_attn")),
          ("library attention (SDPA)", ("flash", "fmha", "sdpa")),
          ("convolution", ("conv", "fprop", "dgrad", "winograd")),
          ("GEMM (dense layers)", ("gemm", "nvjet", "cutlass")),
@@ -1268,15 +1334,20 @@ def main():
     from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
 
     names = sorted(src.stem for src in cuda_build.CSRC_DIR.glob("*.cu"))
+    for name in names:   # built anew, so that nvcc's ptxas report is read
+        cuda_build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
     cuda_build.build(names)                  # one nvcc per source, together
     for name in names:
         cuda_build.load(name)
     log(f"[build] {len(names)} kernels in {time.perf_counter() - t0:.2f} s")
+    ptxas = {name: ptxas_report(cuda_build.BUILD_LOG.get(name, ""))
+             for name in names}
     for name in names:
-        for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, r in ptxas[name].items():
+            log(f"[build] {name}: {fn[:90]}: {r['regs']} registers, "
+                f"{r['smem']} bytes static smem, {r['spill_bytes']} bytes "
+                f"spilled (stores + loads)")
 
     from metric_depth_video_toolbox_tpu_torch.ops import \
         attention_packed as apk
@@ -1351,6 +1422,9 @@ def main():
     phase_profile(metric, frames, (eng, eye),
                   (da3_eng, da3_frames, da3_res["flash_packed"]["s"]), dev)
 
+    def over(r):
+        return r["ms"] / r["library_ms"] if r.get("library_ms") else None
+
     main_ = sweep["main"]
     bf16, prod = attention["bfloat16"], attention["production"]
     cross, per_view = packed["cross_view_bfloat16"], \
@@ -1399,7 +1473,10 @@ def main():
                                 f"{PROD_BLOCKS} causal blocks",
                        **{k: prod[k] for k in (
                            "ms", "plain_ms", "bound_ms", "bound_by",
-                           "max_abs_err", "error_ratio")}},
+                           "library_ms", "max_abs_err", "error_ratio")},
+                       "ms_over_library": over(prod),
+                       **({"library_error": prod["library_error"]}
+                          if "library_error" in prod else {})},
     }, {
         "name": "packed_flash_attention", "route": "cuda",
         "source": f"{PACKAGE}/csrc/packed_flash_attention.cu",
@@ -1416,9 +1493,13 @@ def main():
         "per_view": {"shape": f"({DA3_VIEWS}, 2368, {3 * DA3_HEADS}, "
                               f"{DA3_HEAD_DIM}) bfloat16",
                      **{k: per_view[k] for k in packed_keys},
+                     "ms_over_library": over(per_view),
                      "max_abs_err_float32":
                          packed["per_view_float32"]["max_abs_err"]},
     }]
+    for entry in kernels:
+        entry.update(kernel_resources(ptxas, entry["name"]))
+        entry["ms_over_library"] = over(entry)
     log(json.dumps({"da3": {k: {kk: v[kk] for kk in ("s", "fps", "peak_gib")}
                             for k, v in da3_res.items()},
                     "fused_stereo_fps": fused_fps,

@@ -389,11 +389,15 @@ class WanSelfAttention(nn.Module):
         q = _apply_rope(self.norm_q(heads(self.q(x))), *rope)
         k = _apply_rope(self.norm_k(heads(self.k(x))), *rope)
         v = heads(self.v(x))
-        # (B, H, N, hd); a head dim the kernel does not take is zero-padded
-        # to the next multiple of 16, which changes no dot product
+        # (B, H, N, hd) views of the (B, N, H, hd) projections: the kernel
+        # reads them at their strides and its output comes back the same
+        # way, so neither side is copied. A head dim the wrapper does not
+        # take is zero-padded to the next multiple of 16, which changes no
+        # dot product.
+        qh, kh, vh = (t.to(dt).transpose(1, 2) for t in (q, k, v))
         pad = (-hd) % 16
-        qh, kh, vh = (F.pad(t.to(dt).transpose(1, 2), (0, pad))
-                      for t in (q, k, v))
+        if pad:
+            qh, kh, vh = (F.pad(t, (0, pad)) for t in (qh, kh, vh))
         out = bc.block_causal_attention(qh, kh, vh, block_ids,
                                         1.0 / float(hd) ** 0.5)
         out = out[..., :hd].transpose(1, 2).reshape(b, n, c.dim)

@@ -15,6 +15,14 @@ masked, so a pad query's row is finite and the caller slices it off.
 Returns (B, N, H, D), which reshapes freely to (B, N, H * D). The kernel
 bounds the ragged tail itself, so N needs no multiple; the ViT pads its
 token axis to :data:`PAD_MULTIPLE` all the same.
+
+In bfloat16 the kernel is the wgmma + TMA core of ``csrc/flash_sm90.cuh``
+at head dim 64 or 128, reading q, k and v in place from qkv4. What it is
+given is prepared by plain functions the CPU tests reach:
+:func:`key_tile_classes` (which 128-key tiles to skip, take whole or
+mask), :func:`key_bits` (the validity as a bitmap, for the masked tiles)
+and ``blockcausal.pad_head_dim`` (zero columns up to the core's head dim,
+a copy of qkv4 that only narrow test models take).
 """
 
 from __future__ import annotations
@@ -22,22 +30,26 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from metric_depth_video_toolbox_tpu_torch.ops.blockcausal import (
-    KERNEL_DTYPES, error_ratio)
+    KERNEL_DTYPES, KEY_TILE, error_ratio, kernel_head_dim, pad_head_dim)
 
-__all__ = ["LAUNCHES", "PAD_MULTIPLE", "error_ratio",
-           "packed_flash_attention", "packed_flash_attention_plain"]
+__all__ = ["LAUNCHES", "PAD_MULTIPLE", "error_ratio", "key_bits",
+           "key_tile_classes", "packed_flash_attention",
+           "packed_flash_attention_plain"]
 
 # kernel launches by wrapper name; the wrapper adds one per launch
 LAUNCHES = {"packed_flash_attention": 0}
 
-# The kernel's query and key tile (kBQ = kBK = 64 in the source). A ViT that
-# pads each view's tokens to this multiple starts every view of a cross-view
-# sequence on a tile boundary: no query tile straddles two views, and each
-# view holds exactly one key tile that needs the per-column mask (the
-# others are all valid and take the unmasked path). The JAX package pads to
-# 512, the TPU compiler's block; here that would only add rows.
+# The ViT pads each view's tokens to this multiple, which divides the
+# kernel's 128-key tile (kBK in csrc/flash_sm90.cuh): a view's pads are one
+# run at its end, so a key tile is all valid, or mixed where a view ends
+# inside it or a run of pads starts. At DA3_L's 2305 tokens per view (2368
+# padded) that is about one mixed tile per view, 52 of 962 in a cross-view
+# sequence; the rest take the unmasked path. The pad sets the token count
+# of every ViT layer: 64 adds 63 rows per view where 128 would add 127.
+# The JAX package pads to 512, the TPU compiler's block.
 PAD_MULTIPLE = 64
 
 # elements of the score matrix per chunk (of heads, or of one head's query
@@ -76,6 +88,27 @@ def packed_flash_attention_plain(qkv4, valid, num_heads, sm_scale):
     return out
 
 
+def key_tile_classes(valid, tile=KEY_TILE):
+    """-> int8 (ceil(N / tile),) class of each key tile under ``valid``
+    (N,): 0 = no valid key (the kernel skips it), 1 = every key valid (no
+    mask), 2 = mixed (masked by column). A tile reaching past N counts the
+    missing keys as invalid."""
+    n = valid.numel()
+    ok = F.pad(valid.reshape(-1) != 0, (0, (-n) % tile)).reshape(-1, tile)
+    return torch.where(ok.all(1), 1, torch.where(ok.any(1), 2, 0)).to(
+        torch.int8)
+
+
+def key_bits(valid, tile=KEY_TILE):
+    """-> uint8 bitmap of ``valid`` (N,): bit b of byte i is key 8 i + b,
+    zero-padded to whole key tiles (16 bytes per 128-key tile), which the
+    kernel reads as four 32-bit words per tile."""
+    n = valid.numel()
+    ok = F.pad(valid.reshape(-1) != 0, (0, (-n) % tile)).view(-1, 8)
+    weight = 1 << torch.arange(8, dtype=torch.int32, device=valid.device)
+    return (ok.to(torch.int32) * weight).sum(1).to(torch.uint8)
+
+
 def _check_args(qkv4, valid, num_heads):
     if qkv4.ndim != 4 or qkv4.shape[2] != 3 * num_heads:
         raise ValueError(f"qkv4 must be (B, N, 3 * {num_heads}, D), got "
@@ -89,9 +122,6 @@ def _check_args(qkv4, valid, num_heads):
                          f"up to 128")
     if tuple(valid.shape) != (n,):
         raise ValueError(f"valid must be ({n},), got {tuple(valid.shape)}")
-    if b * num_heads > 65535:
-        raise ValueError(f"B * H = {b * num_heads}: the kernel's grid takes "
-                         f"at most 65535 (batch, head) pairs per launch")
 
 
 def packed_flash_attention(qkv4, valid, num_heads, sm_scale):
@@ -100,7 +130,9 @@ def packed_flash_attention(qkv4, valid, num_heads, sm_scale):
     :func:`packed_flash_attention_plain`; CUDA tensors launch the kernel
     (bfloat16 or float32, D a multiple of 16 up to 128, one launch for
     every (b, h), q, k and v read in place at their stride of 3 * H * D)
-    and count it in ``LAUNCHES``."""
+    and count it in ``LAUNCHES``. In bfloat16 a head dim other than 64 or
+    128 is zero-padded to one of them: a copy of qkv4, which only narrow
+    test models take (every production ViT has heads of 64)."""
     if qkv4.device != valid.device:
         raise ValueError(f"arguments on several devices: {qkv4.device}, "
                          f"{valid.device}")
@@ -112,21 +144,30 @@ def packed_flash_attention(qkv4, valid, num_heads, sm_scale):
                          f"{dev}")
     _check_args(qkv4, valid, num_heads)
     b, n, _, d = qkv4.shape
+    classes = bits = None
+    dk = d
+    if qkv4.dtype == torch.bfloat16:
+        dk = kernel_head_dim(d)
+        qkv4 = pad_head_dim(qkv4, dk)
+        classes, bits = key_tile_classes(valid), key_bits(valid)
     qkv4 = qkv4.contiguous()
     if qkv4.data_ptr() % 16:
         qkv4 = qkv4.clone()
     ok = valid.to(torch.int32).contiguous()
-    out = torch.empty((b, n, num_heads, d), dtype=qkv4.dtype, device=dev)
+    out = torch.empty((b, n, num_heads, dk), dtype=qkv4.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().mdvt_packed_flash_attention(
-            qkv4.data_ptr(), ok.data_ptr(), out.data_ptr(), b, n, num_heads,
-            d, float(sm_scale), KERNEL_DTYPES[qkv4.dtype], stream)
+            qkv4.data_ptr(), ok.data_ptr(),
+            None if bits is None else bits.data_ptr(),
+            None if classes is None else classes.data_ptr(), out.data_ptr(),
+            b, n, num_heads, dk, float(sm_scale), KERNEL_DTYPES[qkv4.dtype],
+            stream)
     if rc != 0:
         raise RuntimeError(f"packed_flash_attention kernel launch failed: "
                            f"CUDA error {rc}")
     LAUNCHES["packed_flash_attention"] += 1
-    return out
+    return out if dk == d else out[..., :d]
 
 
 def _library():
@@ -136,6 +177,6 @@ def _library():
     fn = lib.mdvt_packed_flash_attention
     if fn.restype is not ctypes.c_int or not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib

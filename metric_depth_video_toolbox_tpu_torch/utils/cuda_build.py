@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``build/lib<name>-<hash>.so`` at the repository root,
-keyed by the content of the source and of the ``csrc`` headers it includes,
-and by the flags), loaded with ``ctypes``. Nothing
+keyed by the content of the source, of the ``csrc`` headers it includes,
+nested ones too, and by the flags), loaded with ``ctypes``. Nothing
 is built when a module is imported: a wrapper calls :func:`load` on its
 first launch; :func:`build` compiles several sources at once.
 """
@@ -53,8 +53,14 @@ def library_path(name):
     """-> where ``csrc/<name>.cu``'s library is (or will be) built."""
     flags = NVCC_FLAGS.get(name, COMMON_FLAGS)
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    for header in _INCLUDE.findall(source):
-        source += (CSRC_DIR / header.decode()).read_bytes()
+    seen, todo = set(), _INCLUDE.findall(source)
+    while todo:                      # the csrc headers, nested ones too
+        header = todo.pop().decode()
+        if header not in seen:
+            seen.add(header)
+            text = (CSRC_DIR / header).read_bytes()
+            source += text
+            todo += _INCLUDE.findall(text)
     digest = hashlib.sha256(source + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -163,10 +163,89 @@ def test_packed_attention_rejects_arguments_on_two_devices():
                                    torch.ones(8, device="meta"), 1, 1.0)
 
 
-def test_pad_multiple_is_the_kernels_tile():
-    """The ViT pads to the kernel's key tile (kBK in the CUDA source)."""
+def test_pad_multiple_divides_the_kernels_key_tile():
+    """The kernel classes whole 128-key tiles (kBK in the core's source,
+    KEY_TILE here, which ``key_tile_classes`` uses) and the ViT pads each
+    view to a multiple that divides it, so a view's pads are one run at
+    its end and only the tiles a view ends in, or a pad run starts in,
+    are mixed."""
+    from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
     from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
 
-    src = (cuda_build.CSRC_DIR / "packed_flash_attention.cu").read_text()
-    assert f"constexpr int kBK = {apk.PAD_MULTIPLE};" in src
-    assert f"constexpr int kBQ = {apk.PAD_MULTIPLE};" in src
+    src = (cuda_build.CSRC_DIR / "flash_sm90.cuh").read_text()
+    assert f"constexpr int kBK = {bcm.KEY_TILE};" in src
+    assert bcm.KEY_TILE % apk.PAD_MULTIPLE == 0
+    # DA3_L: 2305 tokens per view padded to 2368 over 52 views; every
+    # mixed tile holds a view's end
+    valid = np.tile(np.arange(2368) < 2305, 52)
+    classes = apk.key_tile_classes(torch.from_numpy(valid)).numpy()
+    assert len(classes) == 962 and (classes == 0).sum() == 0
+    assert (classes == 2).sum() == 52
+
+
+def key_tile_classes_brute(valid, tile):
+    out = []
+    for t0 in range(0, len(valid), tile):
+        keys = [bool(valid[j]) if j < len(valid) else False
+                for j in range(t0, t0 + tile)]
+        out.append(1 if all(keys) else 2 if any(keys) else 0)
+    return out
+
+
+@pytest.mark.parametrize("name,n,runs", [
+    ("interleaved", 1000, ((100, 128), (300, 420), (700, 705))),
+    ("leading_all_pad_run", 700, ((0, 300),)),
+    ("ragged_tail", 777, ()),
+    ("ragged_tail_pads", 777, ((700, 777),)),
+    ("no_valid_key", 300, ((0, 300),)),
+    ("one_tile", 128, ()),
+])
+def test_key_tile_classes_match_brute_force(name, n, runs):
+    """The wrapper's per-tile classes (0 no valid key, 1 all valid, 2
+    mixed; keys past N count as invalid) against a loop over the keys."""
+    valid = pads(n, *runs)
+    for tile in (128, 64):
+        got = apk.key_tile_classes(torch.from_numpy(valid), tile)
+        assert got.dtype == torch.int8
+        assert got.tolist() == key_tile_classes_brute(valid, tile)
+
+
+@pytest.mark.parametrize("name,n,runs", [
+    ("interleaved", 1000, ((100, 128), (300, 420), (700, 705))),
+    ("leading_all_pad_run", 700, ((0, 300),)),
+    ("ragged_tail", 777, ()),
+])
+def test_key_bits_match_brute_force(name, n, runs):
+    """The bitmap the kernel's masked tiles read (bit b of byte i = key
+    8 i + b, zero past N up to a whole 128-key tile) against the keys."""
+    valid = pads(n, *runs)
+    got = apk.key_bits(torch.from_numpy(valid)).numpy()
+    assert got.dtype == np.uint8 and len(got) == -(-n // 128) * 16
+    bits = np.unpackbits(got, bitorder="little").astype(bool)
+    assert np.array_equal(bits[:n], valid) and not bits[n:].any()
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 112])
+def test_head_dim_padding_keeps_attention(d):
+    """The bf16 kernel runs head dims 64 and 128 only; the wrapper pads
+    qkv4 with zero columns (``pad_head_dim`` to ``kernel_head_dim``). The
+    padded attention through the plain version, cut back to d columns,
+    equals the unpadded one: zero columns change no dot product."""
+    from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as bcm
+
+    rng = np.random.default_rng(d)
+    qkv4 = torch.from_numpy(rng.standard_normal((2, 150, 9, d))
+                            .astype(np.float32))
+    valid = torch.from_numpy(pads(150, (40, 64), (140, 150)))
+    dk = bcm.kernel_head_dim(d)
+    assert dk == (64 if d <= 64 else 128)
+    padded = bcm.pad_head_dim(qkv4, dk)
+    assert padded.shape == (2, 150, 9, dk)
+    assert torch.equal(padded[..., :d], qkv4)
+    assert not padded[..., d:].any()
+    sm = d ** -0.5
+    got = apk.packed_flash_attention_plain(padded, valid, 3, sm)[..., :d]
+    want = apk.packed_flash_attention_plain(qkv4, valid, 3, sm)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6,
+                               rtol=0)
+    assert bcm.pad_head_dim(padded, dk) is padded

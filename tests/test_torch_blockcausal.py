@@ -158,3 +158,84 @@ def test_error_ratio_passes_rounding_and_fails_faults(fault):
     if fault is None:
         assert ratio < 0.75
         assert tbc.error_ratio(ref, ref) == 0
+
+
+def key_ranges_brute(ids, tile):
+    """Per query tile: keys with id <= the id of its last and first query,
+    counted one by one."""
+    n = len(ids)
+    key_end, full_end = [], []
+    for q0 in range(0, n, tile):
+        last, first = ids[min(q0 + tile, n) - 1], ids[q0]
+        key_end.append(sum(1 for j in range(n) if ids[j] <= last))
+        full_end.append(sum(1 for j in range(n) if ids[j] <= first))
+    return key_end, full_end
+
+
+def pad_ids(ids, n):
+    """The JAX package's pad convention: pad keys (and queries) id max + 1."""
+    return np.concatenate([ids, np.full(n - len(ids), ids.max() + 1)])
+
+
+@pytest.mark.parametrize("name,ids", [
+    ("one_block", np.zeros(300)),
+    ("many_blocks_inside_tiles", np.arange(1000) // 70),
+    ("ragged_tail", np.arange(777) // 200),
+    ("wan_chip_smoke", np.arange(18720) // 4680),
+    ("pad_convention", pad_ids(np.arange(300) // 50, 384)),
+    ("one_token", np.zeros(1)),
+])
+def test_key_ranges_match_brute_force(name, ids):
+    """``visible_prefix`` (torch.searchsorted: the keys each query sees,
+    what the kernel's per-element test reads) and ``key_ranges`` (what its
+    tile loop reads) against loops over the keys, for the kernel's query
+    tiles at both head dims."""
+    ids = ids.astype(np.int32)
+    prefix = tbc.visible_prefix(torch.from_numpy(ids))
+    assert prefix.dtype == torch.int32
+    assert prefix.tolist() == [int((ids <= i).sum()) for i in ids]
+    for tile in sorted(set(tbc.QUERY_TILE.values())):
+        key_end, full_end = tbc.key_ranges(prefix, tile)
+        assert key_end.dtype == full_end.dtype == torch.int32
+        want = key_ranges_brute(ids, tile)
+        assert key_end.tolist() == want[0] and full_end.tolist() == want[1]
+
+
+@pytest.mark.parametrize("d", [16, 64, 96, 128])
+def test_strided_views_and_head_dim_padding_keep_attention(d):
+    """What the CUDA branch hands the kernel, through the plain version:
+    (B, N, H, D) projections seen as (B, H, N, D) by ``transpose(1, 2)``
+    are read at their own strides (``tma_strides``, no copy), and a head
+    dim other than 64 or 128 is zero-padded (``pad_head_dim``). The
+    padded attention, cut back to d columns, equals the unpadded dense
+    one."""
+    rng = np.random.default_rng(d)
+    b, n, h = 2, 200, 3
+    ids = (np.arange(n) // 64).astype(np.int32)
+    bnhd = [torch.from_numpy(t) for t in qkv((b, n, h, d), d)]
+    views = [t.transpose(1, 2) for t in bnhd]          # (B, H, N, D)
+    dk = tbc.kernel_head_dim(d)
+    prepped = [tbc.pad_head_dim(t, dk) for t in views]
+    if dk == d:
+        assert all(p is v for p, v in zip(prepped, views))
+        bf = views[0].to(torch.bfloat16)
+        assert tbc.tma_strides(bf, "q") == [n * h * d, d, h * d]
+    sm = d ** -0.5
+    got = tbc.block_causal_attention_plain(*prepped, torch.from_numpy(ids),
+                                           sm)[..., :d]
+    want = dense(*(t.numpy() for t in views), ids, sm)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_tma_strides_refuse_what_tma_cannot_read():
+    """A non-contiguous last dim, or a row stride that is no multiple of
+    16 bytes, raises instead of taking another path; a dim of extent 1
+    gets a stride TMA takes."""
+    x = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="last dim"):
+        tbc.tma_strides(x.transpose(2, 3), "q")
+    with pytest.raises(ValueError, match="16-byte"):
+        tbc.tma_strides(torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16)
+                        [..., :64], "k")
+    strides = tbc.tma_strides(x, "v")
+    assert strides[1:] == [64 * 64, 64] and strides[0] % 8 == 0

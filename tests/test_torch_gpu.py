@@ -177,19 +177,22 @@ def test_block_causal_kernel_matches_plain(cuda, dtype, n, d, block):
     assert ratio <= 1, ratio
 
 
-# planted faults of csrc/block_causal_attention.cu, each (text, its
-# replacement); "unchanged" builds the source as it is
-_TILE_LANDED = ("    cp_async_wait_one();       // this tile's copies have "
-                "landed\n")
+# planted faults of csrc/block_causal_attention.cu (its mask policy for
+# the bf16 core), each (text, its replacement); "unchanged" builds the
+# source as it is
 B3_FAULTS = {
     "unchanged": ("", ""),
-    # query tile 100 of (b, h) 0 leaves out its second live key tile
-    "one_key_tile_skipped": (_TILE_LANDED, _TILE_LANDED + (
-        "    if (cur == 1 && blockIdx.x == 100 && blockIdx.y == 0) {\n"
-        "      __syncthreads(); cur = nxt; continue;\n    }\n")),
-    "mask_ignored": ("        if (!full) {\n", "        if (false) {\n"),
-    # a key tile counts as seen whole when the block's last query sees it
-    "whole_tile_test_on_qmax": ("kid[tid] <= qmin));", "kid[tid] <= qmax));"),
+    # the per-element test on the masked tiles ignores the ids
+    "mask_ignored": ("    return key < ctx;\n", "    return key < p.n;\n"),
+    # query tile 10 of (b, h) 0 leaves out its second key tile
+    "one_key_tile_skipped": (
+        "    return kt;   // every tile below key_end",
+        "    return kt + (qt == 10 && bh == 0 && kt == 1);   // every tile "
+        "below key_end"),
+    # a key tile counts as seen whole when the tile's last query sees it
+    "whole_tile_test_on_last_query": (
+        "    return (kt + 1) * kBK > p.full_end[qt];",
+        "    return (kt + 1) * kBK > p.key_end[qt];"),
 }
 
 
@@ -250,6 +253,28 @@ def test_block_causal_tolerance_fails_planted_faults(cuda, b3_variants,
           f"{(got.float() - want).abs().max().item():.3e}, error ratio "
           f"{ratio:.3f}")
     assert (ratio <= 1) == (fault == "unchanged"), ratio
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_block_causal_kernel_reads_strided_views(cuda, d):
+    """(B, N, H, D) tensors passed as transpose(1, 2) views, as the DiT
+    does, give exactly the contiguous call's result: the kernel reads each
+    operand at its own strides."""
+    b, n, h = 2, 1500, 3
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(b, n, h, d, generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    ids = (torch.arange(n, device=cuda) // 400).to(torch.int32)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = bcm.block_causal_attention(*views, ids, d ** -0.5)
+    want = bcm.block_causal_attention(*(t.contiguous() for t in views), ids,
+                                      d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ratio = bcm.error_ratio(got, bcm.block_causal_attention_plain(
+        *(t.float() for t in views), ids, d ** -0.5))
+    assert ratio <= 1, ratio
 
 
 @pytest.mark.gpu
@@ -343,16 +368,18 @@ def test_packed_attention_no_valid_key_gives_zeros(cuda):
                                                              1.0))
 
 
-# planted faults of csrc/packed_flash_attention.cu
+# planted faults of csrc/packed_flash_attention.cu (its mask policy)
 B4_FAULTS = {
     "b4_unchanged": ("", ""),
+    # mixed tiles are masked by the tail only, not by validity
     "b4_validity_ignored": (
-        "        if (!full && kok[nt * 8 + 2 * t + (e & 1)] == 0) val = "
-        "neg_inf();\n", ""),
-    # query tile 100 of (b, h) 0 leaves out its second key tile
-    "b4_one_key_tile_skipped": (_TILE_LANDED, _TILE_LANDED + (
-        "    if (cur == 1 && blockIdx.x == 100 && blockIdx.y == 0) {\n"
-        "      __syncthreads(); cur = nxt; continue;\n    }\n")),
+        "    return (bits >> bit) & 1u;   // 0 past N: the bitmap is padded "
+        "with 0\n", "    return key < p.n;\n"),
+    # query tile 10 of (b, h) 0 leaves out its second key tile
+    "b4_one_key_tile_skipped": (
+        "    while (kt < end && p.tile_class[kt] == 0) ++kt;\n",
+        "    kt += qt == 10 && bh == 0 && kt == 1;\n"
+        "    while (kt < end && p.tile_class[kt] == 0) ++kt;\n"),
 }
 
 
@@ -379,6 +406,22 @@ def test_packed_attention_tolerance_fails_planted_faults(cuda, b4_variants,
     ratio = check_packed(qkv4, valid, 16, 0.125)
     print(f"B4 {fault}: error ratio {ratio:.3f}")
     assert (ratio <= 1) == (fault == "b4_unchanged"), ratio
+
+
+@pytest.mark.gpu
+def test_packed_attention_more_than_65535_heads(cuda):
+    """B * H = 65568 (batch 2049, 32 heads) in one launch: the persistent
+    grid walks (query tile, b * h) work tiles, so no grid dimension is
+    bounded by B * H."""
+    b, n, h, d = 2049, 40, 32, 64
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    qkv4 = torch.randn(b, n, 3 * h, d, generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    valid = torch.arange(n, device=cuda) < 33
+    before = apk.LAUNCHES["packed_flash_attention"]
+    ratio = check_packed(qkv4, valid, h, d ** -0.5)
+    assert apk.LAUNCHES["packed_flash_attention"] == before + 1
+    assert ratio <= 1, ratio
 
 
 @pytest.mark.gpu
