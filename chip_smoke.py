@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-csrc DIR]
 
 Run from the repository root on a machine with a CUDA card. Phases, each
 of which fails the run on error:
@@ -14,7 +14,13 @@ of which fails the run on error:
                 on the card: the disparity sweep and the fused main +
                 anchor sweep on the stereo path's own 1080p inputs
                 (bit-equal, and the fused sweep's main surface bit-equal to
-                the single sweep's under the same bitmap); block-causal
+                the single sweep's under the same bitmap), then each sweep
+                timed with its bitmap as computed, all zero and all ones,
+                with what each asks of the loop (tests, inactive planes
+                passed, pre-test survivors) and the SASS counts of float64
+                work (with --baseline-csrc DIR, the same for the sweep
+                sources of DIR, timed in turns and held bit-equal to this
+                checkout's); block-causal
                 attention at the infill phase's shape (1, 12, 18720, 128),
                 4 causal blocks, in bfloat16 and float32 (within the
                 tolerance of ops/blockcausal.py::error_ratio), timed beside
@@ -170,10 +176,14 @@ def gpu_ms(fn, iters):
 def sweep_stream(depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
                  block_rows, num_planes, pad_left):
     """What one depth stream of a sweep needs on these inputs -> (tests,
-    hits, depth columns read, payload columns read): the (pixel, active
-    plane) tests up to each pixel's first hit, the hits, and per (element,
-    row, padded column) whether some test reads the depth there and
-    whether some hit blends the payload there."""
+    hits, depth columns read, payload columns read, counts): the (pixel,
+    active plane) tests up to each pixel's first hit, the hits, and per
+    (element, row, padded column) whether some test reads the depth there
+    and whether some hit blends the payload there; ``counts`` has the
+    inactive planes a pixel passes before its first hit (what a loop over
+    all P planes iterates in vain) and the tests that survive the sweep
+    core's float32 pre-test (``warp_sweep.sweep_pretest``: the float64
+    blends it runs)."""
     import torch
 
     from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
@@ -184,13 +194,14 @@ def sweep_stream(depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
     found = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
     depth_reads = torch.zeros((b, h, wp), dtype=torch.int32, device=dev)
     payload_reads = torch.zeros((b, h, wp), dtype=torch.int32, device=dev)
-    tests = 0
+    tests = inactive = survivors = 0
     row_tile = torch.arange(h, device=dev) // block_rows
     x = torch.arange(w, device=dev)
     for p in range(num_planes):
         act = (active[:, row_tile, p] > 0)[:, :, None]
         tested = act & ~found
         tests += int(tested.sum())
+        inactive += int((~act & ~found).sum())
         s = x[None, :] + (disp_int[:, p].long() + pad_left)[:, None]
         s = s[:, None, :].expand(b, h, w)
         gathered = []
@@ -199,15 +210,22 @@ def sweep_stream(depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
             idx = idx.clamp(0, wp - 1)
             gathered.append((idx, tested & inside, torch.where(
                 inside, torch.gather(depth_pad, 2, idx), 0.0)))
-        d = ws.blend(gathered[0][2], gathered[1][2],
-                     disp_frac[:, p, None, None])
-        hit = tested & (torch.abs(d - plane_z[:, p, None, None])
-                        < plane_tol[:, p, None, None]) & (d > 1e-3)
+        f = disp_frac[:, p, None, None]
+        z = plane_z[:, p, None, None]
+        tol = plane_tol[:, p, None, None]
+        d = ws.blend(gathered[0][2], gathered[1][2], f)
+        survivors += int((tested & ws.sweep_pretest(
+            gathered[0][2], gathered[1][2], f, z, tol)).sum())
+        hit = tested & (torch.abs(d - z) < tol) & (d > 1e-3)
         for idx, reads, _ in gathered:
             depth_reads.scatter_add_(2, idx, reads.int())
             payload_reads.scatter_add_(2, idx, (hit & reads).int())
         found |= hit
-    return tests, int(found.sum()), depth_reads > 0, payload_reads > 0
+    counts = {"tests": tests, "inactive_iterations": inactive,
+              "pretest_survivors": survivors, "hits": int(found.sum()),
+              "pixels": b * h * w}
+    return (tests, counts["hits"], depth_reads > 0, payload_reads > 0,
+            counts)
 
 
 def sweep_work(args, num_planes, pad_left):
@@ -226,7 +244,7 @@ def sweep_work(args, num_planes, pad_left):
     b, h, wp = depth_pad.shape
     c = color_pad.shape[1]
     w = wp - 2 * pad_left - 2 * ws.LANE
-    tests, hits, depth_read, payload_read = sweep_stream(
+    tests, hits, depth_read, payload_read, _ = sweep_stream(
         depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
         ws.BLOCK_ROWS, num_planes, pad_left)
     nbytes = sum(t.numel() * t.element_size() for t in
@@ -305,11 +323,11 @@ def ptxas_report(log):
 
 
 # the kernel of each source that its main path launches, by a substring of
-# its mangled name: the sweeps, and the bf16 core at the main path's head
-# dim with the source's mask policy
+# its mangled name: the sweep core with one and two streams, and the bf16
+# attention core at the main path's head dim with the source's mask policy
 MAIN_PATH_FUNCTION = {
-    "disparity_sweep": "sweep_kernel",
-    "disparity_sweep_dual": "dual_sweep_kernel",
+    "disparity_sweep": "sweep_sm90ILi1E",
+    "disparity_sweep_dual": "sweep_sm90ILi2E",
     "block_causal_attention": "flash_sm90ILi128E",
     "packed_flash_attention": "flash_sm90ILi64E",
 }
@@ -468,7 +486,167 @@ def phase_kernels(gen, dev):
         f"on {dual['anchor_share']:.4f} of pixels; kernel {ms:.3f} ms, plain "
         f"{plain:.3f} ms, bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
         f"{ops32 / 1e9:.3f} GOP f32 + {ops64 / 1e9:.3f} GOP f64)")
-    return results, dual
+    return results, dual, captured, args
+
+
+SASS_OPS = ("F2F", "DADD", "DMUL", "DFMA")
+BITMAPS = ("computed", "zeros", "ones")
+
+
+def sass_counts(lib_path):
+    """``cuobjdump -sass`` of a built library -> {function: {"instructions":
+    n, "F2F": n, "DADD": n, "DMUL": n, "DFMA": n}}: every SASS instruction
+    of each kernel and its float64 conversions and arithmetic (the whole
+    function, not only its loop). None where cuobjdump is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"instructions": 0, **{op: 0 for op in SASS_OPS}}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if fn is not None and m:
+            out[fn]["instructions"] += 1
+            if m.group(1) in SASS_OPS:
+                out[fn][m.group(1)] += 1
+    return out
+
+
+def build_baseline(csrc):
+    """The two sweep sources of another checkout's ``csrc`` directory (for
+    example the parent commit's, unpacked with git archive) built into
+    build/baseline -> ({name: ctypes library}, {name: library path},
+    {name: ptxas report})."""
+    import ctypes
+    from pathlib import Path
+
+    from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
+
+    names = ("disparity_sweep", "disparity_sweep_dual")
+    saved = (cuda_build.CSRC_DIR, cuda_build.BUILD_DIR,
+             dict(cuda_build.BUILD_LOG))
+    cuda_build.CSRC_DIR = Path(csrc).resolve()
+    cuda_build.BUILD_DIR = Path(REPO) / "build" / "baseline"
+    try:
+        paths = {n: cuda_build.library_path(n) for n in names}
+        for path in paths.values():
+            path.unlink(missing_ok=True)
+        cuda_build.build(names)
+        report = {n: ptxas_report(cuda_build.BUILD_LOG.get(n, ""))
+                  for n in names}
+        return ({n: ctypes.CDLL(str(p)) for n, p in paths.items()}, paths,
+                report)
+    finally:
+        cuda_build.CSRC_DIR, cuda_build.BUILD_DIR = saved[:2]
+        cuda_build.BUILD_LOG.clear()
+        cuda_build.BUILD_LOG.update(saved[2])
+
+
+@contextlib.contextmanager
+def libraries(libs):
+    """The sweep wrappers launch ``libs``' kernels inside the block (None:
+    the checkout's own)."""
+    from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
+
+    load = cuda_build.load
+    if libs is not None:
+        cuda_build.load = lambda name: libs[name]
+    try:
+        yield
+    finally:
+        cuda_build.load = load
+
+
+def phase_sweep_ablation(calls, dual_args, baseline_csrc=None):
+    """Each sweep (main, anchor, fused) on the stereo path's own inputs
+    with three bitmaps: as computed, all zero (staging and stores only) and
+    all ones (every plane tested up to the first hit): ms per launch, and
+    what the function asks on each (sweep_stream's counts). With
+    ``baseline_csrc``, the same for the kernels built from that directory,
+    timed in turns with this checkout's (baseline, this, this, baseline;
+    the best of each), after checking that both give the same outputs bit
+    for bit. SASS counts of both. -> results by sweep."""
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
+    from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
+
+    def with_bitmap(tag, args, bm):
+        if tag == "dual":
+            acts = [a if bm == "computed" else (torch.zeros_like(a)
+                    if bm == "zeros" else torch.ones_like(a))
+                    for a in args[8:10]]
+            return args[:8] + tuple(acts) + args[10:]
+        a = args[-1]
+        a = a if bm == "computed" else (torch.zeros_like(a) if bm == "zeros"
+                                        else torch.ones_like(a))
+        return args[:-1] + (a,)
+
+    cases = {"main": calls[0], "anchor": calls[1], "dual": dual_args}
+    launch = {"main": ws.disparity_sweep, "anchor": ws.disparity_sweep,
+              "dual": ws.disparity_sweep_dual}
+    base = build_baseline(baseline_csrc) if baseline_csrc else None
+    res = {}
+    for tag, args in cases.items():
+        r = res[tag] = {"ms": {}, "counts": {}}
+        if base:
+            r["baseline_ms"] = {}
+        for bm in BITMAPS:
+            a = with_bitmap(tag, args, bm)
+            if tag == "dual":
+                planes = a[4:8]
+                r["counts"][bm] = {
+                    stream: sweep_stream(depth, *planes, act,
+                                         ws.DUAL_BLOCK_ROWS, a[10], a[11])[4]
+                    for stream, depth, act in (("main", a[0], a[8]),
+                                               ("edge", a[1], a[9]))}
+            else:
+                r["counts"][bm] = sweep_stream(a[0], *a[2:6], a[8],
+                                               ws.BLOCK_ROWS, a[6], a[7])[4]
+
+            def run(a=a, fn=launch[tag]):
+                fn(*a)
+            if base is None:
+                r["ms"][bm] = gpu_ms(run, 10)
+                continue
+            with libraries(base[0]):
+                old = launch[tag](*a)
+            new = launch[tag](*a)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(old, new)):
+                raise RuntimeError(f"ablation {tag}, {bm} bitmap: the "
+                                   f"baseline kernel and this one differ")
+            times = {"old": [], "new": []}
+            for who in ("old", "new", "new", "old"):
+                with libraries(base[0] if who == "old" else None):
+                    times[who].append(gpu_ms(run, 10))
+            r["ms"][bm], r["baseline_ms"][bm] = min(times["new"]), min(
+                times["old"])
+        log(f"[ablation] {tag}: ms per launch by bitmap {r['ms']}"
+            + (f", baseline kernels {r['baseline_ms']} (bit-equal to "
+               f"these on every bitmap)" if base else "")
+            + f"; counts {r['counts']}")
+    name = {"main": "disparity_sweep", "dual": "disparity_sweep_dual"}
+    res["sass"] = {n: sass_counts(cuda_build.library_path(n))
+                   for n in name.values()}
+    if base:
+        res["baseline_sass"] = {n: sass_counts(base[1][n])
+                                for n in name.values()}
+        res["baseline_ptxas"] = base[2]
+    log(f"[ablation] SASS (whole functions): {res['sass']}"
+        + (f"; baseline {res['baseline_sass']}; baseline ptxas "
+           f"{res['baseline_ptxas']}" if base else ""))
+    return res
 
 
 def attention_work(ids, b, h, d, elem_bytes):
@@ -1315,7 +1493,16 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    import argparse
+
     import numpy as np
+
+    cli = argparse.ArgumentParser(description="Smoke run on one CUDA card.")
+    cli.add_argument("--baseline-csrc", dest="baseline_csrc",
+                     help="also build the two sweep sources of this csrc "
+                          "directory and time them beside this checkout's "
+                          "(phase 2's bitmap ablation)")
+    baseline_csrc = cli.parse_args().baseline_csrc
 
     # float32 results are compared against plain versions: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1370,7 +1557,9 @@ def main():
         log(f"[main path] {path}: launches {want}: {why}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    sweep, dual = phase_kernels(gen, dev)
+    sweep, dual, sweep_calls, dual_args = phase_kernels(gen, dev)
+    ablation = phase_sweep_ablation(sweep_calls, dual_args, baseline_csrc)
+    del sweep_calls, dual_args
     packed = phase_kernels_packed(dev)
     attention = phase_kernels_attention(gen, dev)
 
@@ -1434,6 +1623,7 @@ def main():
     kernels = [{
         "name": "disparity_sweep", "route": "cuda",
         "source": f"{PACKAGE}/csrc/disparity_sweep.cu",
+        "core": f"{PACKAGE}/csrc/sweep_sm90.cuh",
         "replaces": "metric_depth_video_toolbox_tpu/ops/warp_pallas.py:43",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in sweep.values()),
@@ -1444,9 +1634,12 @@ def main():
                                              "bound_ms", "bound_by",
                                              "active_share")}
                    for k, v in sweep.items()},
+        "ablation": {k: ablation[k] for k in ("main", "anchor")},
+        "sass": ablation["sass"]["disparity_sweep"],
     }, {
         "name": "disparity_sweep_dual", "route": "cuda",
         "source": f"{PACKAGE}/csrc/disparity_sweep_dual.cu",
+        "core": f"{PACKAGE}/csrc/sweep_sm90.cuh",
         "replaces": "metric_depth_video_toolbox_tpu/ops/warp_pallas.py:107",
         "launches": dual_launches,
         "max_abs_err": dual["max_abs_err"],
@@ -1455,6 +1648,8 @@ def main():
         "library_ms": None,
         "shape": dual["shape"], "active_share": dual["active_share"],
         "anchor_share": dual["anchor_share"],
+        "ablation": ablation["dual"],
+        "sass": ablation["sass"]["disparity_sweep_dual"],
     }, {
         "name": "block_causal_attention", "route": "cuda",
         "source": f"{PACKAGE}/csrc/block_causal_attention.cu",
@@ -1500,6 +1695,11 @@ def main():
     for entry in kernels:
         entry.update(kernel_resources(ptxas, entry["name"]))
         entry["ms_over_library"] = over(entry)
+        if "baseline_sass" in ablation and entry["name"] in ablation[
+                "baseline_sass"]:
+            entry["baseline_sass"] = ablation["baseline_sass"][entry["name"]]
+            entry["baseline_ptxas"] = ablation["baseline_ptxas"][
+                entry["name"]]
     log(json.dumps({"da3": {k: {kk: v[kk] for kk in ("s", "fps", "peak_gib")}
                             for k, v in da3_res.items()},
                     "fused_stereo_fps": fused_fps,

@@ -2,7 +2,11 @@
 ``cli/depth_engines.py``; its other engines are not ported yet, ROADMAP
 A13).
 
-  mdvt-torch da3    DA3 windowed multi-view depth + poses + xfovs
+  mdvt-torch engine da3   DA3 windowed multi-view depth + poses + xfovs
+  mdvt-torch da3          the same
+
+``mdvt-torch engine <name>`` dispatches as the JAX package's ``mdvt engine``
+does; the engines other than da3 exit naming ROADMAP A13.
 
 The same flags and defaults as the JAX package. Flags whose path is not
 ported yet raise NotImplementedError naming the ROADMAP item.
@@ -100,3 +104,35 @@ def run_da3(args, device=None):
 
 def da3_main(argv=None):
     return run_da3(build_da3_parser().parse_args(argv))
+
+
+# the JAX package's engines, in its order; None: not ported yet (A13)
+MAINS = {
+    "unidepth": None,
+    "unik3d": None,
+    "moge": None,
+    "depthpro": None,
+    "videoanythingmetric": None,
+    "da3": da3_main,
+    "depthcrafter": None,
+    "geometrycrafter": None,
+    "mvsa": None,
+}
+
+
+def main(argv=None):
+    """``mdvt-torch engine <name> ...``: dispatch to one engine CLI."""
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: mdvt-torch engine <name> [engine flags]\n"
+              f"engines: {', '.join(MAINS)}")
+        return 0 if argv else 2
+    name = argv[0]
+    if name not in MAINS:
+        print(f"unknown engine '{name}'; one of: {', '.join(MAINS)}")
+        return 2
+    if MAINS[name] is None:
+        raise SystemExit(f"mdvt-torch engine {name}: not ported yet (see "
+                         f"ROADMAP.md, A13)")
+    return MAINS[name](argv[1:])

@@ -1,7 +1,9 @@
 """``mdvt-torch`` -- the port's entry point, multiplexing its tools.
 
   mdvt-torch depth     video_metric_convert (VDA engine)
-  mdvt-torch da3       DA3 multi-view depth + poses + xfovs
+  mdvt-torch engine    per-engine depth CLIs (engine da3; the others are
+                       not ported yet)
+  mdvt-torch da3       DA3 multi-view depth + poses + xfovs (= engine da3)
   mdvt-torch stereo    stereo_rerender (disparity-sweep path)
   mdvt-torch infill    SBS infill (--infill_engine inspatio_world)
 
@@ -19,6 +21,8 @@ import sys
 SUBCOMMANDS = {
     "depth": ("metric_depth_video_toolbox_tpu_torch.cli."
               "video_metric_convert", "main"),
+    "engine": ("metric_depth_video_toolbox_tpu_torch.cli.depth_engines",
+               "main"),
     "da3": ("metric_depth_video_toolbox_tpu_torch.cli.depth_engines",
             "da3_main"),
     "stereo": ("metric_depth_video_toolbox_tpu_torch.cli.stereo_rerender",
@@ -28,8 +32,8 @@ SUBCOMMANDS = {
 
 NOT_PORTED = ("mask", "convergence", "track", "align", "export", "movie",
               "view", "split-sbs", "analyse-tracking", "analyse-depth",
-              "flow", "slam", "upscale", "project", "inpaint", "engine",
-              "gui", "download-weights", "bench")
+              "flow", "slam", "upscale", "project", "inpaint", "gui",
+              "download-weights", "bench")
 
 
 def main(argv=None):
@@ -39,7 +43,9 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("command", choices=list(SUBCOMMANDS) + list(
         NOT_PORTED))
-    args, rest = parser.parse_known_args(argv)
+    # the subcommand alone, so that its flags (--help too) reach its parser
+    args = parser.parse_args(argv[:1])
+    rest = argv[1:]
     if args.command in NOT_PORTED:
         raise SystemExit(f"mdvt-torch {args.command}: not ported yet "
                          "(see ROADMAP.md, queue A)")

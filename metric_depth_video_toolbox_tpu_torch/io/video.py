@@ -201,8 +201,8 @@ class VideoWriter:
         if frame_rgb.dtype != np.uint8:
             frame_rgb = np.clip(frame_rgb, 0, 255).astype(np.uint8)
         if frame_rgb.shape[:2] != (self.height, self.width):
-            raise ValueError(f"frame {frame_rgb.shape[:2]} does not match "
-                             f"the writer's {(self.height, self.width)}")
+            frame_rgb = _cv2().resize(frame_rgb, (self.width, self.height),
+                                      interpolation=_cv2().INTER_LINEAR)
         self.writer.write(np.ascontiguousarray(frame_rgb[..., ::-1]))
         self.frames_written += 1
 

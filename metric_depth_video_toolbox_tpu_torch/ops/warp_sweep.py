@@ -5,8 +5,11 @@
 :func:`disparity_sweep_plain`, the same function as a per-plane PyTorch
 loop, on CPU tensors. :func:`disparity_sweep_dual` (the fused main +
 edge-anchor sweep) does the same with ``csrc/disparity_sweep_dual.cu`` and
-:func:`disparity_sweep_dual_plain`. There is no fallback between a kernel
-and its plain version: a CUDA tensor launches the kernel or raises.
+:func:`disparity_sweep_dual_plain`. Both kernels run on one sweep core,
+``csrc/sweep_sm90.cuh``, which rejects most planes with an exact float32
+pre-test before the float64 blend; :func:`sweep_pretest` is that
+predicate's twin. There is no fallback between a kernel and its plain
+version: a CUDA tensor launches the kernel or raises.
 
 Every argument carries a leading batch axis (frames x eyes); the plane
 vectors and the activity bitmaps are per batch element.
@@ -23,6 +26,11 @@ LANE = 128
 BLOCK_ROWS = 64   # the JAX kernel's row tile; the activity bitmap's unit
 DUAL_BLOCK_ROWS = 32   # the JAX dual kernel's row tile, its bitmaps' unit
 MARGIN = 4        # planes of dilation in the bitmap: tolerance + lerp
+# the sweep core's pre-test: the margin around its float32 estimate of the
+# blend, relative to max(|a|, |b|), and the absolute slack of its
+# thresholds (csrc/sweep_sm90.cuh kPreMargin, kPreSlack)
+PRETEST_MARGIN = 2.0 ** -19
+PRETEST_SLACK = 2.0 ** -120
 
 # kernel launches by wrapper name; each wrapper adds one per launch
 LAUNCHES = {"disparity_sweep": 0, "disparity_sweep_dual": 0}
@@ -149,6 +157,78 @@ def blend(a, b, f):
     return ((1.0 - f).double() * a.double() + (f * b).double()).float()
 
 
+def _add_directed(x, y, up):
+    """float32 x + y rounded toward +inf (``up``) or x - y toward -inf, as
+    CUDA's __fadd_ru / __fsub_rd: the float64 sum and its TwoSum error
+    decide which float32 neighbour of the exact value is taken."""
+    xd, yd = x.double(), (y if up else -y).double()
+    s = xd + yd
+    bb = s - xd
+    err = (xd - (s - bb)) + (yd - bb)
+    f = s.float()
+    fd = f.double()
+    if up:
+        move = (fd < s) | ((fd == s) & (err > 0))
+        return torch.where(move, torch.nextafter(
+            f, torch.full_like(f, float("inf"))), f)
+    move = (fd > s) | ((fd == s) & (err < 0))
+    return torch.where(move, torch.nextafter(
+        f, torch.full_like(f, -float("inf"))), f)
+
+
+def pretest_bounds(f, z, tol):
+    """Per plane (hiZ, lowZ) of the sweep core's pre-test: (z + tol rounded
+    up) + 2^-120 rounded up, and max(z - tol rounded down, 1e-3) - 2^-120
+    rounded down; +inf and -inf (never reject) where f is outside [0, 1] or
+    NaN. All float32."""
+    unit = (f >= 0) & (f <= 1)
+    inf = torch.full_like(z, float("inf"))
+    slack = torch.full_like(z, PRETEST_SLACK)
+    hiz = _add_directed(_add_directed(z, tol, True), slack, True)
+    lowz = _add_directed(torch.fmax(_add_directed(z, tol, False),
+                                    torch.full_like(z, 1e-3)), slack, False)
+    return torch.where(unit, hiz, inf), torch.where(unit, lowz, -inf)
+
+
+def _fma32(x, y, z):
+    """x * y + z on float32 tensors rounded once, as CUDA's __fmaf_rn: the
+    product is exact in float64; the float64 sum and its TwoSum error
+    decide the rounding where the sum is a tie between two float32s."""
+    p, zd = x.double() * y.double(), z.double()
+    s = p + zd
+    bb = s - p
+    err = (p - (s - bb)) + (zd - bb)
+    f = s.float()
+    inf = torch.full_like(f, float("inf"))
+    lo = torch.where(f.double() <= s, f, torch.nextafter(f, -inf))
+    hi = torch.nextafter(lo, inf)
+    tie = (s - lo.double()) == (hi.double() - s)
+    return torch.where(tie & (err > 0), hi,
+                       torch.where(tie & (err < 0), lo, f))
+
+
+def _blend_bounds(a, b, f, margin=PRETEST_MARGIN):
+    """The sweep core's bounds [lo, hi] on blend(a, b, f), f in [0, 1]:
+    est = fma(f, b - a, a), then fma(-/+margin, max(|a|, |b|), est)."""
+    est = _fma32(f, b - a, a)
+    m = torch.fmax(a.abs(), b.abs())
+    return (_fma32(torch.full_like(m, -margin), m, est),
+            _fma32(torch.full_like(m, margin), m, est))
+
+
+def sweep_pretest(a, b, f, z, tol, margin=PRETEST_MARGIN):
+    """The sweep core's float32 pre-test (csrc/sweep_sm90.cuh ``may_hit``):
+    False only where ``blend(a, b, f)`` cannot pass the plane's test
+    |d - z| < tol and d > 1e-3, so the kernel skips the float64 blend
+    there. The estimate fma(f, b - a, a) and its bounds fma(-/+margin,
+    max(|a|, |b|), estimate) are rounded as the kernel rounds them. All
+    arguments float32 and broadcastable; ``margin`` as the kernel's (other
+    values for tests of the bound)."""
+    hiz, lowz = pretest_bounds(f, z, tol)
+    lo, hi = _blend_bounds(a, b, f, margin)
+    return ~((lo >= hiz) | (hi <= lowz))
+
+
 def disparity_sweep(depth_pad, color_pad, disp_int, disp_frac, plane_z,
                     plane_tol, num_planes, pad_left, active=None):
     """Run the plane sweep.
@@ -199,7 +279,8 @@ def disparity_sweep(depth_pad, color_pad, disp_int, disp_frac, plane_z,
             num_planes, pad_left, ntiles, BLOCK_ROWS, stream)
     if rc != 0:
         raise RuntimeError(f"disparity_sweep kernel launch failed: CUDA "
-                           f"error {rc}")
+                           f"error {rc} (error 1: rows of {wp} columns do "
+                           f"not fit in a block's shared memory)")
     LAUNCHES["disparity_sweep"] += 1
     return out_z, out_color, found
 
@@ -294,7 +375,8 @@ def disparity_sweep_dual(depth_pad, edepth_pad, shared_pad, extra_pad,
             DUAL_BLOCK_ROWS, stream)
     if rc != 0:
         raise RuntimeError(f"disparity_sweep_dual kernel launch failed: "
-                           f"CUDA error {rc}")
+                           f"CUDA error {rc} (error 1: rows of {wp} columns "
+                           f"do not fit in a block's shared memory)")
     LAUNCHES["disparity_sweep_dual"] += 1
     return outs
 

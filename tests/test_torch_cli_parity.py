@@ -1,0 +1,76 @@
+"""``mdvt-torch`` against the JAX package's ``mdvt``: every subcommand of
+the reference is accepted (ported, or the not-ported exit), ``engine
+<name>`` dispatches as the reference does, and the video writer resizes a
+frame of another size as the reference's does."""
+
+import numpy as np
+import pytest
+
+from metric_depth_video_toolbox_tpu.cli import main as jmain
+from metric_depth_video_toolbox_tpu.io import video as jvio
+from metric_depth_video_toolbox_tpu_torch.cli import depth_engines as tengines
+from metric_depth_video_toolbox_tpu_torch.cli import main as tmain
+from metric_depth_video_toolbox_tpu_torch.io import video as tvio
+
+REFERENCE_COMMANDS = sorted(jmain.SUBCOMMANDS) + ["bench"]
+
+
+@pytest.mark.parametrize("command", REFERENCE_COMMANDS)
+def test_every_reference_subcommand_is_accepted(command, capsys):
+    """Ported subcommands reach their own parser (``--help`` exits 0 or
+    returns); the others exit with their not-ported line. None is an
+    invalid choice."""
+    assert command in tmain.SUBCOMMANDS or command in tmain.NOT_PORTED
+    if command in tmain.NOT_PORTED:
+        with pytest.raises(SystemExit, match="not ported yet"):
+            tmain.main([command])
+        return
+    try:
+        tmain.main([command, "--help"])
+    except SystemExit as e:
+        assert e.code in (0, None)
+    assert "usage" in capsys.readouterr().out
+
+
+def test_engine_da3_reaches_da3_parser(capsys):
+    with pytest.raises(SystemExit) as e:
+        tmain.main(["engine", "da3", "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "--images_per_batch" in out and "--da3_resolution" in out
+
+
+def test_engine_lists_the_reference_engines(capsys):
+    from metric_depth_video_toolbox_tpu.cli import depth_engines as jengines
+
+    assert list(tengines.MAINS) == list(jengines.MAINS)
+    assert tengines.main([]) == 2
+    assert tengines.main(["nosuch"]) == 2
+    assert "da3" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["unidepth", "moge", "mvsa"])
+def test_engine_unported_exits_naming_a13(name):
+    with pytest.raises(SystemExit, match="A13"):
+        tmain.main(["engine", name, "--color_video", "x.mkv"])
+
+
+def test_video_writer_resizes_like_reference(tmp_path):
+    """Frames of other sizes (larger, smaller, another aspect) written
+    through both packages' writers with the lossless codec decode to
+    identical frames of the writer's size."""
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 256, shape, np.uint8)
+              for shape in ((48, 64, 3), (37, 91, 3), (96, 128, 3),
+                            (60, 80, 3))]
+    out = {}
+    for name, vio in (("jax", jvio), ("torch", tvio)):
+        path = str(tmp_path / f"{name}.mkv")
+        with vio.VideoWriter(path, 24, 80, 60, codec_fourcc="FFV1") as w:
+            for f in frames:
+                w.write(f)
+        with tvio.VideoReader(path) as r:
+            out[name] = r.read_all()
+    assert out["torch"].shape == (4, 60, 80, 3)
+    np.testing.assert_array_equal(out["torch"], out["jax"])
+    np.testing.assert_array_equal(out["torch"][3], frames[3])

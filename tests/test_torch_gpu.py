@@ -80,13 +80,13 @@ def test_disparity_sweep_rejects_bad_arguments(cuda):
         ws.disparity_sweep(*args, 1, 0)
 
 
-def dual_sweep_args(cuda, n_shared=3, n_extra=3, num_planes=128):
-    """Three scenes whose depth splits into a main stream and a sparse
+def dual_sweep_args(cuda, n_shared=3, n_extra=3, num_planes=128, b=3,
+                    h=200, w=320):
+    """``b`` scenes whose depth splits into a main stream and a sparse
     edge stream (the columns beside each depth step), with both bitmaps.
     -> (dual arguments, the single sweep's arguments for the main stream)"""
     rng = np.random.default_rng(12)
-    h, w = 200, 320
-    cases = [scene_planes(rng, h, w, num_planes) for _ in range(3)]
+    cases = [scene_planes(rng, h, w, num_planes) for _ in range(b)]
 
     def stack(i):
         return torch.from_numpy(np.stack([c[i] for c in cases])).to(cuda)
@@ -101,8 +101,8 @@ def dual_sweep_args(cuda, n_shared=3, n_extra=3, num_planes=128):
 
     def pad(t):
         return torch.nn.functional.pad(t, (pad_l, pad_r))
-    shared = pad(torch.rand(3, n_shared, h, w, device=cuda))
-    extra = pad(torch.rand(3, n_extra, h, w, device=cuda))
+    shared = pad(torch.rand(b, n_shared, h, w, device=cuda))
+    extra = pad(torch.rand(b, n_extra, h, w, device=cuda))
     planes = (torch.floor(disp).to(torch.int32), disp - torch.floor(disp),
               stack(3), stack(4))
     acts = [ws.plane_activity(t, stack(1), stack(2), num_planes,
@@ -152,6 +152,230 @@ def test_disparity_sweep_dual_rejects_bad_arguments(cuda):
         ws.disparity_sweep_dual(*bad)
 
 
+def ragged_planes(rng, h, w, num_planes):
+    """scene_planes, or for one plane a plane at the scene's mean depth
+    with a wide tolerance."""
+    if num_planes > 1:
+        return scene_planes(rng, h, w, num_planes)
+    depth = scene_planes(rng, h, w, 2)[0]
+    z = np.float32(depth.mean())
+    return (depth, np.float32(1 / depth.min()), np.float32(0), np.array(
+        [z], np.float32), np.array([0.3 * z], np.float32),
+        np.array([-3.5], np.float32))
+
+
+def ragged_sweep_args(cuda, b, h, w, num_planes, n_chan, bitmap, disp,
+                      seed=0):
+    """The single sweep's arguments at a ragged shape. ``bitmap``:
+    computed, ones, or empty_tile (computed, with the second row tile's
+    list empty). ``disp``: scene (the stereo step's zero padding), or
+    last_column / beyond (padding filled with depth and payload, and a
+    third of the planes moved to read the last padded column at the last
+    pixel, or past either end of the row)."""
+    rng = np.random.default_rng(seed + 100 * b + num_planes)
+    cases = [ragged_planes(rng, h, w, num_planes) for _ in range(b)]
+
+    def stack(i):
+        return torch.from_numpy(np.stack([c[i] for c in cases])).to(cuda)
+    d = stack(0)
+    pad_l, pad_r = ws.pad_widths(w, 256)
+    depth_pad = torch.nn.functional.pad(d, (pad_l, pad_r))
+    color_pad = torch.nn.functional.pad(
+        torch.rand(b, n_chan, h, w, device=cuda), (pad_l, pad_r))
+    dv = stack(5)
+    di, df = torch.floor(dv).to(torch.int32), dv - torch.floor(dv)
+    if disp != "scene":
+        wp = depth_pad.shape[-1]
+        reps = -(-wp // w)
+        depth_pad = d.repeat(1, 1, reps)[..., :wp].contiguous()
+        color_pad = torch.rand(b, n_chan, h, wp, device=cuda)
+        moved = torch.arange(num_planes, device=cuda) % 3 == 1
+        far = pad_l + 255 if disp == "last_column" else pad_l + 300
+        near = -pad_l - 40 if disp == "beyond" else di
+        di = torch.where(moved, torch.full_like(di, far), di)
+        if disp == "beyond":
+            di = torch.where(torch.arange(num_planes, device=cuda) % 3 == 2,
+                             torch.full_like(di, near), di)
+    if num_planes > 1:
+        act = ws.plane_activity(d, stack(1), stack(2), num_planes)
+    else:
+        act = torch.ones(b, -(-h // ws.BLOCK_ROWS), 1, dtype=torch.int32,
+                         device=cuda)
+    if bitmap == "ones":
+        act = torch.ones_like(act)
+    elif bitmap == "empty_tile":
+        act[:, 1] = 0
+    return (depth_pad, color_pad, di, df, stack(3), stack(4), num_planes,
+            pad_l, act)
+
+
+# (B, H, W, P, C, bitmap, disparities): W not a multiple of 32 or of 4
+# (333: the rows are not 16-byte multiples, so the producer copies them
+# by hand), H not a multiple of the 4-row band or the 64-row tile
+RAGGED = {
+    "b1_p33_w333": (1, 70, 333, 33, 3, "computed", "scene"),
+    "p1_ones": (2, 65, 300, 1, 3, "ones", "scene"),
+    "p128_empty_tile": (3, 200, 320, 128, 3, "empty_tile", "scene"),
+    "p128_all_ones_c6": (2, 131, 257, 128, 6, "ones", "scene"),
+    "last_padded_column": (2, 70, 300, 33, 3, "ones", "last_column"),
+    "beyond_padding": (2, 70, 333, 33, 3, "computed", "beyond"),
+    "b17_p128": (17, 67, 300, 128, 3, "computed", "scene"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(RAGGED))
+def test_disparity_sweep_kernel_matches_plain_ragged(cuda, case):
+    """Ragged shapes, 1 to 128 planes, empty and full plane lists, reads
+    of the last padded column and past the row: the kernel equals the
+    plain version bit for bit on every output."""
+    args = ragged_sweep_args(cuda, *RAGGED[case])
+    got = ws.disparity_sweep(*args)
+    torch.cuda.synchronize()
+    want = ws.disparity_sweep_plain(*args)
+    assert want[2].any()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,num_planes,bitmap", [
+    (17, 67, 333, 33, "computed"), (1, 45, 300, 128, "ones"),
+    (2, 70, 300, 128, "empty_tile")])
+def test_disparity_sweep_dual_kernel_matches_plain_ragged(cuda, b, h, w,
+                                                          num_planes,
+                                                          bitmap):
+    """The fused sweep at ragged shapes, B = 1 and 17, with full and empty
+    plane lists: bit for bit on all six outputs, and its main surface equal
+    to the single sweep's under the same bitmap."""
+    dual, single = dual_sweep_args(cuda, num_planes=num_planes, b=b, h=h,
+                                   w=w)
+    dual, single = list(dual), list(single)
+    if bitmap == "ones":
+        dual[8], dual[9] = torch.ones_like(dual[8]), torch.ones_like(dual[9])
+        single[-1] = torch.ones_like(single[-1])
+    elif bitmap == "empty_tile":
+        dual[8][:, 1] = 0
+        dual[9][:, 0] = 0
+        single[-1][:, 1] = 0
+    got = ws.disparity_sweep_dual(*dual)
+    torch.cuda.synchronize()
+    want = ws.disparity_sweep_dual_plain(*dual)
+    for a, b_ in zip(got, want):
+        assert a.shape == b_.shape and torch.equal(a, b_)
+    # the single sweep's 64-row bitmap as the fused sweep's 32-row tiles
+    fine = single[-1].repeat_interleave(2, dim=1)[
+        :, :dual[8].shape[1]].contiguous()
+    got = ws.disparity_sweep_dual(*dual[:8], fine, *dual[9:])
+    for a, b_ in zip(got[:3], ws.disparity_sweep(*single)):
+        assert torch.equal(a, b_)
+
+
+def adversarial_sweep_args(cuda):
+    """Rows alternating a, b and one plane with f where the sweep core's
+    float32 estimate fma(f, b - a, a) lies two or more floats from the
+    blend d; z = d and tol just short of the gap: every pixel reading
+    (a, b) hits, and a pre-test without its margin would reject them all."""
+    rng = np.random.default_rng(8)
+    n = 200_000
+    a = torch.from_numpy(rng.uniform(0.1, 1, n).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(10, 100, n).astype(np.float32))
+    f = torch.from_numpy(rng.random(n).astype(np.float32))
+    d = ws.blend(a, b, f)
+    est = ws._fma32(f, b - a, a)
+    i = int(torch.nonzero((d.view(torch.int32) - est.view(torch.int32))
+                          .abs() >= 2)[0])
+    a, b, f, d, est = a[i], b[i], f[i], d[i], est[i]
+    inf = torch.tensor(float("inf"))
+    tol = (d - torch.nextafter(est, inf) if d > est
+           else torch.nextafter(est, -inf) - d)
+    h, w = 8, 64
+    pad_l, pad_r = ws.pad_widths(w, 128)
+    wp = w + pad_l + pad_r
+    row = torch.where(torch.arange(wp) % 2 == 0, a, b)
+    return (row.expand(1, h, wp).contiguous().to(cuda),
+            torch.rand(1, 3, h, wp, device=cuda),
+            torch.zeros(1, 1, dtype=torch.int32, device=cuda),
+            f.reshape(1, 1).to(cuda), d.reshape(1, 1).to(cuda),
+            tol.reshape(1, 1).to(cuda), 1, pad_l,
+            torch.ones(1, 1, 1, dtype=torch.int32, device=cuda))
+
+
+# planted faults of the sweep core (csrc/sweep_sm90.cuh, pasted into each
+# source), each (text, its replacement, the input that must show it)
+SWEEP_FAULTS = {
+    "sweep_unchanged": ("", "", None),
+    # the pre-test without its margin
+    "pretest_margin_0": ("constexpr float kPreMargin = 0x1p-19f;",
+                         "constexpr float kPreMargin = 0.0f;", "adversarial"),
+    # the first entry of every plane list is skipped
+    "list_entry_skipped": (
+        "    if (may_hit(a, b, e) && exact_hit(a, b, e, exact[k], d)) {",
+        "    if (k > 0 && may_hit(a, b, e) && "
+        "exact_hit(a, b, e, exact[k], d)) {",
+        "scene"),
+}
+DUAL_FAULTS = {
+    "dual_unchanged": ("", "", None),
+    # the main stream sweeps the edge stream's plane list
+    "edge_list_for_main": ("    const int ls = s;  // the stream's own list",
+                           "    const int ls = kStreams - 1;", "dual"),
+}
+
+
+@pytest.fixture(scope="module")
+def sweep_variants(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("sweep_faults")
+    libs = build_variants("disparity_sweep",
+                          {k: v[:2] for k, v in SWEEP_FAULTS.items()}, tmp,
+                          inline_header="sweep_sm90.cuh")
+    libs.update(build_variants("disparity_sweep_dual",
+                               {k: v[:2] for k, v in DUAL_FAULTS.items()},
+                               tmp, inline_header="sweep_sm90.cuh"))
+    return libs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", list(SWEEP_FAULTS) + list(DUAL_FAULTS))
+def test_sweep_bit_equality_fails_planted_faults(cuda, sweep_variants,
+                                                 monkeypatch, fault):
+    """Bit-equality with the plain versions passes the core built
+    unchanged, on an adversarial input for the pre-test's margin, the
+    scene with its bitmaps and the fused sweep's inputs, and fails each
+    planted fault on the input named beside it."""
+    from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
+
+    shows = {**SWEEP_FAULTS, **DUAL_FAULTS}[fault][2]
+    name = ("disparity_sweep_dual" if fault in DUAL_FAULTS
+            else "disparity_sweep")
+    libs = {name: sweep_variants[fault]}
+    load = cuda_build.load
+    monkeypatch.setattr(cuda_build, "load",
+                        lambda name: libs[name] if name in libs else load(name))
+    equal = {}
+    if "disparity_sweep" in libs:
+        for kind, args in (("adversarial", adversarial_sweep_args(cuda)),
+                           ("scene", ragged_sweep_args(
+                               cuda, 2, 200, 320, 128, 3, "computed",
+                               "scene"))):
+            want = ws.disparity_sweep_plain(*args)
+            assert want[2].float().mean() > 0.45
+            got = ws.disparity_sweep(*args)
+            torch.cuda.synchronize()
+            equal[kind] = all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        dual, _ = dual_sweep_args(cuda)
+        got = ws.disparity_sweep_dual(*dual)
+        torch.cuda.synchronize()
+        want = ws.disparity_sweep_dual_plain(*dual)
+        equal["dual"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"sweep fault {fault}: bit-equal by input {equal}")
+    if shows is None:
+        assert all(equal.values()), equal
+    else:
+        assert not equal[shows], equal
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d,block", [(1000, 64, 150), (777, 128, 100),
@@ -196,10 +420,11 @@ B3_FAULTS = {
 }
 
 
-def build_variants(source, faults, tmp):
+def build_variants(source, faults, tmp, inline_header=None):
     """-> {fault: ctypes library} of ``csrc/<source>.cu`` with each planted
     fault (text, its replacement), all built at once in ``tmp`` beside
-    copies of the headers."""
+    copies of the headers; with ``inline_header``, that header's text is
+    pasted in place of its #include first, so a fault may lie in it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import ctypes
@@ -207,6 +432,11 @@ def build_variants(source, faults, tmp):
     from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
 
     src = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+    if inline_header:
+        include = f'#include "{inline_header}"'
+        assert include in src
+        src = src.replace(include, (cuda_build.CSRC_DIR /
+                                    inline_header).read_text())
     for header in cuda_build.CSRC_DIR.glob("*.cuh"):
         (tmp / header.name).write_text(header.read_text())
     for fault, (old, new) in faults.items():

@@ -8,11 +8,16 @@ with ops that round differently in XLA and PyTorch (1/z, tan): there
 ``found`` is held equal, z within 1e-5 relative and payload within 1e-6
 absolute. The fused main + anchor sweep (``disparity_sweep_dual``) is held
 the same way against its Pallas kernel in interpret mode. On the card the
-kernels equal their plain versions bit for bit (tests/test_torch_gpu.py)."""
+kernels equal their plain versions bit for bit (tests/test_torch_gpu.py).
+The CUDA sweep core skips the float64 blend where a float32 pre-test
+proves a plane cannot hit; ``warp_sweep.sweep_pretest`` twins that
+predicate, and the tests at the end hold it sound on adversarial draws."""
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 import jax.numpy as jnp
 
 from metric_depth_video_toolbox_tpu.ops import geometry as jgeo
@@ -375,3 +380,160 @@ def test_sweep_wrapper_rejects_other_devices():
     before = ws.LAUNCHES["disparity_sweep"]
     ws.disparity_sweep(*args, 1, 0)
     assert ws.LAUNCHES["disparity_sweep"] == before   # plain, no launch
+
+
+# --- the sweep core's float32 pre-test (csrc/sweep_sm90.cuh ``may_hit``) --
+
+def real_hit(a, b, f, z, tol):
+    """The sweep's plane test on float32 tensors, as the kernels run it."""
+    d = ws.blend(a, b, f)
+    return (torch.abs(d - z) < tol) & (d > 1e-3), d
+
+
+def adversarial_draws(rng, n):
+    """Seeded float32 draws at the pre-test's edges: f at 0, 2^-24,
+    1 - 2^-24 and 1; a = b; a or b = 0; values near 1e-3; z placed at the
+    blended value or one float away and tol exactly at |d - z| or one float
+    above it."""
+    f32 = np.float32
+    mag = np.exp(rng.uniform(np.log(1e-5), np.log(1e3), n)).astype(f32)
+    a = mag
+    b = (mag * (1 + rng.uniform(-1e-6, 1e-6, n))).astype(f32)
+    kind = rng.integers(0, 6, n)
+    b = np.where(kind == 0, a, b)                               # a = b
+    b = np.where(kind == 1, f32(0), b)                          # b = 0
+    a = np.where(kind == 2, f32(0), a)                          # a = 0
+    near = (1e-3 * (1 + rng.uniform(-1e-5, 1e-5, n))).astype(f32)
+    a = np.where(kind == 3, near, a)                            # 1e-3 edge
+    b = np.where(kind == 3, near, b)
+    b = np.where(kind == 4, (a * f32(0.5)).astype(f32), b)      # a != b
+    b = np.where(kind == 5, (a * f32(37.0)).astype(f32), b)     # b >> a
+    edges = np.array([0, 2 ** -24, 1 - 2 ** -24, 1, 0.5], f32)
+    f = np.where(rng.random(n) < 0.5, edges[rng.integers(0, 5, n)],
+                 rng.random(n).astype(f32)).astype(f32)
+    a, b, f = (torch.from_numpy(np.ascontiguousarray(v)) for v in (a, b, f))
+    d = ws.blend(a, b, f)
+    step = torch.from_numpy(rng.integers(-2, 3, n)).float()
+    z = torch.where(step == 0, d, torch.nextafter(d, d + step))
+    gap = torch.abs(d - z)
+    tol = torch.where(torch.from_numpy(rng.random(n) < 0.5), gap,
+                      torch.nextafter(gap, torch.full_like(gap, 1.0)))
+    return a, b, f, z, tol
+
+
+def test_pretest_never_rejects_a_hit_adversarial():
+    """On seeded draws at every edge of the bound (1.2 million), a plane
+    the real test accepts always passes the pre-test; the float32 estimate
+    fma(f, b - a, a) differs from the blend on many of them, and with no margin the same
+    draws contain accepted planes that the pre-test would reject, so the
+    draws reach the bound."""
+    rng = np.random.default_rng(2024)
+    a, b, f, z, tol = adversarial_draws(rng, 1_200_000)
+    hit, d = real_hit(a, b, f, z, tol)
+    assert int(hit.sum()) > 100_000
+    assert not (hit & ~ws.sweep_pretest(a, b, f, z, tol)).any()
+    est = ws._fma32(f, b - a, a)
+    assert int((est != d).sum()) > 50_000
+    unsafe = hit & ~ws.sweep_pretest(a, b, f, z, tol, margin=0.0)
+    assert int(unsafe.sum()) > 10
+
+
+def test_pretest_rejects_most_far_planes():
+    """Planes far from the sample are rejected without the blend."""
+    a = torch.tensor([4.0, 4.0, 4.0, 1e-4, 4.0])
+    b = torch.tensor([4.1, 4.1, 4.1, 2e-4, 4.1])
+    f = torch.tensor([0.3, 0.3, 0.3, 0.3, 1.5])
+    z = torch.tensor([9.0, 1.0, 4.05, 4.05, 9.0])
+    tol = torch.tensor([0.5, 0.5, 0.5, 0.5, 0.5])
+    got = ws.sweep_pretest(a, b, f, z, tol)
+    # far behind, far in front, near, below 1e-3, f outside [0, 1]
+    assert got.tolist() == [False, False, True, False, True]
+
+
+def test_pretest_bounds_round_outward():
+    """The directed additions give the least float32 >= z + tol and the
+    greatest float32 <= z - tol, exactly (rational arithmetic); hiZ lies
+    above z + tol and lowZ below max(z - tol, 1e-3)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(5)
+    z = np.concatenate([rng.uniform(0.5, 60, 300),
+                        [1.0, 1.0, 3e38, 1e-30]]).astype(np.float32)
+    tol = np.concatenate([np.exp(rng.uniform(-40, 1, 300)),
+                          [1e-20, 2 ** -24, 3e38, 1e-38]]).astype(np.float32)
+    zt, tt = torch.from_numpy(z), torch.from_numpy(tol)
+    up = ws._add_directed(zt, tt, True).numpy()
+    low = ws._add_directed(zt, tt, False).numpy()
+
+    def q(v):
+        return Fraction(float(v))
+
+    for zi, ti, h, lo in zip(z, tol, up, low):
+        above, below = q(zi) + q(ti), q(zi) - q(ti)
+        prev = np.nextafter(h, np.float32(-np.inf))
+        assert (np.isinf(h) and above > q(prev)) or q(h) >= above > q(prev)
+        assert q(lo) <= below < q(np.nextafter(lo, np.float32(np.inf)))
+    hiz, lowz = ws.pretest_bounds(torch.full_like(zt, 0.5), zt, tt)
+    assert (hiz.numpy()[np.isfinite(up)] > up[np.isfinite(up)]).all()
+    assert (lowz.numpy() < np.maximum(low, np.float32(1e-3))).all()
+
+
+def test_fma32_rounds_once():
+    """The twin of CUDA's fmaf equals the exactly rounded x * y + z
+    (rational arithmetic), ties included."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-4, 4, 2000).astype(np.float32)
+    y = rng.uniform(-4, 4, 2000).astype(np.float32)
+    z = rng.uniform(-4, 4, 2000).astype(np.float32)
+    # ties: x * y + z exactly halfway between two float32s
+    x[:500], y[:500] = np.float32(1.0), np.float32(2.0 ** -24)
+    z[:500] = np.float32(1.0) + np.arange(500, dtype=np.float32) * \
+        np.float32(2.0 ** -23)
+    got = ws._fma32(*(torch.from_numpy(v) for v in (x, y, z))).numpy()
+    for xi, yi, zi, g in zip(x, y, z, got):
+        exact = Fraction(float(xi)) * Fraction(float(yi)) + Fraction(float(zi))
+        below = np.nextafter(g, np.float32(-np.inf))
+        above = np.nextafter(g, np.float32(np.inf))
+        dist = abs(Fraction(float(g)) - exact)
+        assert dist <= abs(Fraction(float(below)) - exact)
+        assert dist <= abs(Fraction(float(above)) - exact)
+        if dist == abs(Fraction(float(above)) - exact) or \
+                dist == abs(Fraction(float(below)) - exact):
+            assert int(g.view(np.int32)) % 2 == 0   # ties to even
+
+
+def test_pretest_bounds_disabled_outside_unit_f():
+    f = torch.tensor([-0.25, 1.25, float("nan"), 0.0, 1.0])
+    z, tol = torch.full((5,), 4.0), torch.full((5,), 0.5)
+    hiz, lowz = ws.pretest_bounds(f, z, tol)
+    assert hiz[:3].isinf().all() and (hiz[:3] > 0).all()
+    assert lowz[:3].isinf().all() and (lowz[:3] < 0).all()
+    assert hiz[3:].tolist() == [float(np.nextafter(np.float32(4.5),
+                                                   np.float32(9)))] * 2
+    assert lowz[3:].tolist() == [float(np.nextafter(np.float32(3.5),
+                                                    np.float32(0)))] * 2
+
+
+@settings(max_examples=400, deadline=None, derandomize=True,
+          database=None)
+@given(a=st.floats(0, 1e4, width=32), b=st.floats(0, 1e4, width=32),
+       f=st.one_of(st.sampled_from([0.0, 2.0 ** -24, 1 - 2.0 ** -24, 1.0]),
+                   st.floats(0, 1, width=32)),
+       shift=st.integers(-3, 3), widen=st.booleans(),
+       same=st.booleans())
+def test_pretest_never_rejects_a_hit_hypothesis(a, b, f, shift, widen, same):
+    """For any samples, fraction and a plane placed at the blended value
+    (or a few floats off) with tol exactly at the gap (or one float above),
+    a plane the real test accepts passes the pre-test."""
+    a, b, f = (torch.tensor([v], dtype=torch.float32)
+               for v in (a, a if same else b, f))
+    d = ws.blend(a, b, f)
+    z = d
+    for _ in range(abs(shift)):
+        z = torch.nextafter(z, z + shift)
+    gap = torch.abs(d - z)
+    tol = torch.nextafter(gap, gap + 1) if widen else gap
+    hit, _ = real_hit(a, b, f, z, tol)
+    assert not bool((hit & ~ws.sweep_pretest(a, b, f, z, tol)).any())
