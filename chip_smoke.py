@@ -62,16 +62,28 @@ of which fails the run on error:
                 blocks). Then the same clip and weights through the
                 default attention (scaled_dot_product_attention), and the
                 two depths compared.
-  7. reference  the depth engine, the stereo step, a narrow Wan infill
-                chunk and a narrow DA3 (flash_packed) at a small size in
-                float32 on the card and on the CPU: they must agree.
-  8. files      depth -> stereo -> infill (--model_scale tiny), da3
+  7. movie      the fourth main path, the toolbox's own: ``mdvt-torch
+                movie`` file to file through cli/main.py at its defaults
+                (VDA-S at 518, U²-Net SEG_FULL at 320 in bfloat16, the
+                movie-configuration stereo step in batches of 16, the basic
+                infill, seeded weights) on a synthetic 1080p clip of two
+                40-frame scenes with a hard cut; counts zeroed before, read
+                after (the disparity sweep twice per stereo batch, nothing
+                else); the scene CSV, the per-scene files, 80 final frames
+                of width 3840 and StereoMode 1 checked; each step's wall
+                time and the movie's source frames/s printed.
+  8. reference  the depth engine, the stereo step, a narrow Wan infill
+                chunk, a narrow DA3 (flash_packed), U²-Net SEG_TINY and
+                the basic infill at a small size in float32 on the card and
+                on the CPU: they must agree.
+  9. files      depth -> stereo -> infill (--model_scale tiny), da3
                 (--model_size vitt) and stereo --fused_anchor_sweep file to
                 file through cli/main.py, where OpenCV is installed (else
                 one line says it was skipped).
-  9. profile    the stereo step, the depth engine, one eye's infill chunk
-                and the DA3 clip under torch.profiler: device time, top
-                kernels.
+ 10. profile    the stereo step, the depth engine, one eye's infill chunk,
+                the DA3 clip, one 16-frame 1080p batch of U²-Net SEG_FULL
+                masks and one 4-frame 3840x1080 batch of the basic infill
+                under torch.profiler: device time, top kernels.
 
 It then prints a JSON line of the kernels' launches, times, bounds,
 library times (and kernel / library ratios), registers and spilled bytes,
@@ -103,6 +115,8 @@ WAN_N, WAN_BLOCKS = 18720, 4   # the infill phase's tokens and causal blocks
 # the inspatio_world preset's 225-frame chunk: 57 latent frames of 30 x 52
 PROD_N, PROD_BLOCKS = 88920, 19
 INFILL_FRAMES = 40
+MOVIE_SCENE_FRAMES = 40        # the movie phase: two scenes of 40 frames
+MOVIE_BATCH = 16               # the movie's stereo batch (its default)
 # DA3_L on a 1080p clip longer than its 40-frame window: 504 x 896 working
 # size, 36 x 64 + 1 tokens per view, 40 + 6 reference + 6 overlap views
 DA3_VIEWS, DA3_TOKENS, DA3_HEADS, DA3_HEAD_DIM = 52, 2305, 16, 64
@@ -1109,6 +1123,197 @@ def phase_da3(dev, zero_counts, counts):
     return res, eng, frames
 
 
+def phase_movie(dev, zero_counts, expect_counts):
+    """``mdvt-torch movie`` file to file at its defaults on a synthetic
+    1080p clip of two 40-frame scenes (the second with its channels
+    reversed: a hard cut for the scene detector). -> (source frames/s,
+    each step's wall time in s, disparity-sweep launches)"""
+    try:
+        import cv2  # noqa: F401 - the movie's file I/O needs it
+    except ImportError as e:
+        raise RuntimeError("movie: OpenCV (cv2) is not installed; the "
+                           "movie path reads and writes video files") from e
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.io import mkv, sidecar
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
+    from metric_depth_video_toolbox_tpu_torch.pipeline import movie, scenes
+
+    # the first stereo batch's main and anchor sweeps, kept (arguments and
+    # results, copied) as the run makes them, for the plain version after
+    launch = ws.disparity_sweep
+    held = []
+
+    def keep(*args):
+        copy = (tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                if len(held) < 2 else None)
+        out = launch(*args)
+        if copy is not None:
+            held.append(copy + (tuple(o.clone() for o in out),))
+        return out
+
+    n = MOVIE_SCENE_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(11)
+    _, first = synth_scene(n, gen, dev, shift_px=6)
+    _, second = synth_scene(n, gen, dev, shift_px=-4)
+    frames = torch.cat([first, second.flip(-1)]).cpu().numpy()
+    del first, second
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "movie.mkv")
+        vio.save_rgb_video(frames, clip, 24)
+        zero_counts()
+        ws.disparity_sweep = keep
+        try:
+            t0 = time.perf_counter()
+            cli.main(["movie", "--color_video", clip, "--xfov", "60"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ws.disparity_sweep = launch
+        steps = dict(movie.STEP_SECONDS)
+        batches = 2 * -(-n // MOVIE_BATCH)
+        expect_counts("movie", {"disparity_sweep": 2 * batches},
+                      f"2 scenes x {batches // 2} stereo batches of up to "
+                      f"{MOVIE_BATCH} frames x 2 eyes, main + anchor sweep "
+                      f"per batch")
+        sweeps = {}
+        for tag, call in zip(("main", "anchor"), held):
+            args, out = call[:-1], call[-1]
+            if args[0].shape[0] != 2 * MOVIE_BATCH:
+                raise RuntimeError(f"movie: the first {tag} sweep has "
+                                   f"{args[0].shape[0]} frame-eyes, "
+                                   f"expected {2 * MOVIE_BATCH}")
+            ref = ws.disparity_sweep_plain(*args)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(out, ref)]
+            err = max(float((out[0] - ref[0]).abs().max()),
+                      float((out[1] - ref[1]).abs().max()))
+            if not all(same):
+                raise RuntimeError(f"movie: {tag} sweep of the first stereo "
+                                   f"batch: kernel != plain (z, color, "
+                                   f"found equal: {same}; max abs err "
+                                   f"{err})")
+            sweeps[tag] = {
+                "shape": f"B={args[0].shape[0]} H={args[0].shape[1]} "
+                         f"WP={args[0].shape[2]} P={args[6]} "
+                         f"C={args[1].shape[1]}",
+                "max_abs_err": err,
+                "active_share": float(args[-1].float().mean())}
+        if len(sweeps) != 2:
+            raise RuntimeError(f"movie: {len(held)} sweeps kept, expected "
+                               f"the first batch's main and anchor")
+        del held[:]
+        out_dir = os.path.join(tmp, "movie_3d")
+        rows = scenes.read_scene_csv(os.path.join(out_dir,
+                                                  "movie-Scenes.csv"))
+        found = [(r["Start Frame"], r["Length (frames)"]) for r in rows]
+        if found != [("0", str(n)), (str(n), str(n))]:
+            raise RuntimeError(f"movie: scenes (start, length) {found}, "
+                               f"expected two of {n} frames")
+        for k in (1, 2):
+            base = os.path.join(out_dir, f"scene_{k}.mkv")
+            for suffix in ("", "_depth.mkv", "_mask.mkv",
+                           "_depth.mkv_convergence_depths.json",
+                           "_depth.mkv_stereo.mkv",
+                           "_depth.mkv_stereo.mkv_infillmask.mkv",
+                           "_depth.mkv_stereo.mkv_infilled.mkv"):
+                if not os.path.isfile(base + suffix):
+                    raise RuntimeError(f"movie: {base + suffix} missing")
+            conv = sidecar.load_convergence_depths(
+                base + "_depth.mkv_convergence_depths.json")
+            if conv.shape != (n,) or np.isinf(conv).any():
+                raise RuntimeError(f"movie: scene {k} convergence depths "
+                                   f"{conv.shape}, {conv[:4]}")
+        final = os.path.join(tmp, "movie_SBS.mkv")
+        count, width, height, _ = vio.video_info(final)
+        mode = mkv.get_stereo_mode(final)
+        if ((count, width, height) != (2 * n, 2 * W, H)
+                or mode != mkv.STEREO_SBS_LEFT_FIRST):
+            raise RuntimeError(f"movie: {final}: {count} frames of "
+                               f"{width}x{height}, StereoMode {mode}")
+        # what the host's codec and the pure-Python tag take of step 7:
+        # the final movie's FFV1 decode, and its StereoMode rewrite again
+        t0 = time.perf_counter()
+        with vio.VideoReader(final) as r:
+            decoded = sum(1 for _ in r)
+        t_decode = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mkv.set_stereo_mode(final, mkv.STEREO_SBS_LEFT_FIRST)
+        t_tag = time.perf_counter() - t0
+        with vio.VideoReader(final) as r:
+            last = r.read_frame(2 * n - 1)
+        if decoded != 2 * n or mkv.get_stereo_mode(final) != mode:
+            raise RuntimeError(f"movie: {decoded} frames decoded after the "
+                               f"tag's rewrite")
+        sbs = os.path.join(out_dir, "scene_2.mkv_depth.mkv_stereo.mkv")
+        with vio.VideoReader(sbs) as r:
+            unfilled = r.read_frame(n - 1)
+        filled = float(np.any(last != unfilled, axis=-1).mean())
+    fps = 2 * n / wall
+    log("[movie] steps, wall s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()))
+    log(f"[movie] 2 scenes x {n} frames {W}x{H} -> {2 * n} frames of "
+        f"{2 * W}x{H}, StereoMode {mode}: {wall:.3f} s, {fps:.3f} source "
+        f"frames/s; share of the last frame the infill changed "
+        f"{filled:.4f}; the final movie's decode {t_decode:.3f} s and its "
+        f"StereoMode rewrite {t_tag:.3f} s, timed after the run")
+    log("[movie] the first stereo batch's sweeps on the movie's depth, "
+        "kernel == plain bit for bit: " + "; ".join(
+            f"{k} {v['shape']} (active tiles {v['active_share']:.4f})"
+            for k, v in sweeps.items()))
+    return fps, steps, 2 * batches, sweeps
+
+
+def phase_reference_movie(dev):
+    """U²-Net SEG_TINY (seeded weights) and the basic infill on the card
+    and on the CPU in float32, at a small size."""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import segmentation
+    from metric_depth_video_toolbox_tpu_torch.ops import infill as iops
+    from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video
+    from metric_depth_video_toolbox_tpu_torch.pipeline import masks
+
+    rng = np.random.default_rng(12)
+    frames = rng.integers(0, 256, (4, 90, 160, 3), np.uint8)
+    p, m = {}, {}
+    for where in ("cpu", dev):
+        eng = masks.MaskEngine(cfg=segmentation.SEG_TINY, work=64,
+                               device=where)
+        p[where] = eng.probabilities(frames).cpu().numpy()
+        m[where] = eng.masks_for(frames)
+    p_err = float(np.abs(p[dev] - p["cpu"]).max())
+    flips = m[dev] != m["cpu"]
+    flip_near = float(np.abs(p["cpu"][flips] - 0.5).max()) if flips.any() \
+        else 0.0
+    sbs = torch.from_numpy(rng.integers(0, 256, (3, 120, 320, 3), np.uint8))
+    mask = rng.integers(0, 256, (3, 120, 320, 3), np.uint8)
+    mask[rng.random((3, 120, 320)) < 0.8] = 0
+    mask[:, 30:60, 100:130] = (0, 255, 0)           # green-coded holes
+    mask = torch.from_numpy(mask)
+    hole = mask.ne(0).any(-1)
+    normals = mask.float() / 255.0 * 2.0 - 1.0
+    march = {where: iops.normal_march_infill(
+        sbs.to(where), hole.to(where), normals.to(where)).cpu()
+        for where in ("cpu", dev)}
+    out = {where: infill_video.basic_infill_frame(
+        sbs.to(where), mask.to(where)).cpu() for where in ("cpu", dev)}
+    code = int((out[dev].int() - out["cpu"].int()).abs().max())
+    equal = bool(torch.equal(march[dev], march["cpu"]))
+    log(f"[reference] U²-Net SEG_TINY fp32 4x90x160, card vs CPU: "
+        f"probability max err {p_err:.3e} (limit 1e-4), {int(flips.sum())} "
+        f"mask pixels differ, at most {flip_near:.3e} from the threshold "
+        f"(limit 1e-3); basic infill 3x120x320: march bit-equal {equal}, "
+        f"blurred output max {code} code (limit 1)")
+    if p_err > 1e-4 or flip_near >= 1e-3 or not equal or code > 1:
+        raise RuntimeError("reference: masks or basic infill disagree "
+                           "between the card and the CPU")
+
+
 def phase_reference_da3(dev):
     """A narrow DA3 (DA3_TINY widths, float32, flash_packed, windows of 4
     + 2 + 3) on the card (kernel B4, head dim 16, float32) against the
@@ -1321,10 +1526,12 @@ def kind_of(key):
     return "other (elementwise, norms, softmax, FFT, ...)"
 
 
-def phase_profile(metric, frames, infill, da3, dev):
+def phase_profile(metric, frames, infill, da3, sbs, sbs_mask, dev):
     """Where the time goes: the stereo step (device only, then with the
     uint8 results copied to the host), the depth engine, one eye's infill
-    chunk and the DA3 clip (two windows), each under torch.profiler; the
+    chunk, the DA3 clip (two windows), one 16-frame batch of U²-Net
+    SEG_FULL masks at 1080p and one 4-frame batch of the basic infill on
+    the phase-4 SBS frames (3840x1080), each under torch.profiler; the
     kernels with the most device time, and for the infill and DA3 the
     device time by kind."""
     import torch
@@ -1361,6 +1568,26 @@ def phase_profile(metric, frames, infill, da3, dev):
     ieng.infill_chunk(*eye)
     t_infill = time.perf_counter() - t0
     da3_eng, da3_frames, t_da3 = da3
+    from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video
+    from metric_depth_video_toolbox_tpu_torch.pipeline import masks
+
+    meng = masks.MaskEngine(device=dev)
+    mask_frames = frames[:MOVIE_BATCH]
+    meng.masks_for(mask_frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meng.masks_for(mask_frames)
+    t_mask = time.perf_counter() - t0
+    sbs4 = torch.as_tensor(sbs[:4], device=dev)
+    mask4 = torch.as_tensor(sbs_mask[:4], device=dev)
+
+    def basic_infill():
+        return infill_video.basic_infill_frame(sbs4, mask4).cpu()
+    basic_infill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    basic_infill()
+    t_basic = time.perf_counter() - t0
     for name, fn, wall, reps in (
             ("stereo step", lambda: stereo.stereo_step(cfg, *args), t_host,
              2),
@@ -1369,7 +1596,12 @@ def phase_profile(metric, frames, infill, da3, dev):
             (f"infill chunk (one eye, {INFILL_FRAMES} frames)",
              lambda: ieng.infill_chunk(*eye), t_infill, 1),
             (f"DA3_L flash_packed ({DA3_FRAMES} frames, 2 windows)",
-             lambda: da3_eng.infer_video(da3_frames), t_da3, 1)):
+             lambda: da3_eng.infer_video(da3_frames), t_da3, 1),
+            (f"U²-Net SEG_FULL masks ({MOVIE_BATCH} frames 1080p, work "
+             f"320, bf16, uint8 masks on the host)",
+             lambda: meng.masks_for(mask_frames), t_mask, 2),
+            (f"basic infill (4 SBS frames {2 * W}x{H}, uint8 on the host)",
+             basic_infill, t_basic, 2)):
         # the first profile pays the tracer's setup
         for _ in range(reps):
             with profile(activities=[ProfilerActivity.CPU,
@@ -1604,12 +1836,17 @@ def main():
 
     da3_res, da3_eng, da3_frames = phase_da3(dev, zero_counts, counts)
 
+    movie_fps, movie_steps, movie_launches, movie_sweeps = phase_movie(
+        dev, zero_counts, expect_counts)
+
     phase_reference(dev)
+    phase_reference_movie(dev)
     phase_reference_infill(sbs, sbs_mask, frames, dev)
     phase_reference_da3(dev)
     phase_files(dev)
     phase_profile(metric, frames, (eng, eye),
-                  (da3_eng, da3_frames, da3_res["flash_packed"]["s"]), dev)
+                  (da3_eng, da3_frames, da3_res["flash_packed"]["s"]), sbs,
+                  sbs_mask, dev)
 
     def over(r):
         return r["ms"] / r["library_ms"] if r.get("library_ms") else None
@@ -1626,7 +1863,9 @@ def main():
         "core": f"{PACKAGE}/csrc/sweep_sm90.cuh",
         "replaces": "metric_depth_video_toolbox_tpu/ops/warp_pallas.py:43",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in sweep.values()),
+        "movie_launches": movie_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            *sweep.values(), *movie_sweeps.values())),
         "ms": main_["ms"], "plain_ms": main_["plain_ms"],
         "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
         "library_ms": None,
@@ -1634,6 +1873,7 @@ def main():
                                              "bound_ms", "bound_by",
                                              "active_share")}
                    for k, v in sweep.items()},
+        "movie_shapes": movie_sweeps,
         "ablation": {k: ablation[k] for k in ("main", "anchor")},
         "sass": ablation["sass"]["disparity_sweep"],
     }, {
@@ -1707,6 +1947,8 @@ def main():
     log(json.dumps({"depth_fps": depth_fps, "stereo_fps": stereo_fps,
                     "infill_sbs_fps": infill_fps, "infill_s": infill_s,
                     "infill_peak_gib": infill_peak}))
+    log(json.dumps({"movie": {"source_frames": 2 * MOVIE_SCENE_FRAMES,
+                              "fps": movie_fps, "steps_s": movie_steps}}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])
     log(json.dumps({"ok": True, "device": {

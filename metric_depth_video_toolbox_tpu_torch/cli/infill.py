@@ -1,9 +1,10 @@
 """CLI: disocclusion infill over SBS renders.
 
 The same flags and defaults as the JAX package's ``cli/infill.py``. The
-port runs ``--infill_engine inspatio_world`` (the Wan-class causal DiT);
-the other engines, ``--model_scale svd`` and ``--checkpoint`` raise,
-naming what they wait for.
+port runs ``--infill_engine basic`` (the normal-march infill, the
+default) and ``inspatio_world`` (the Wan-class causal DiT); the other
+engines, and for inspatio_world ``--model_scale svd``, ``--checkpoint``
+and ``--apply_edge_blending``, raise, naming what they wait for.
 """
 
 from __future__ import annotations
@@ -58,8 +59,7 @@ def build_parser(parser=None):
 
 def _check_ported(args):
     if args.infill_engine == "basic":
-        raise NotImplementedError("not ported yet: --infill_engine basic "
-                                  "(ROADMAP A7: normal-march infill)")
+        return
     if args.infill_engine != "inspatio_world":
         raise NotImplementedError(
             f"not ported yet: --infill_engine {args.infill_engine} "
@@ -99,21 +99,31 @@ def run(args, device=None):
     from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
     from metric_depth_video_toolbox_tpu_torch.pipeline import \
         infill_diffusion
+    from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video
 
     _check_ported(args)
-    eng, drv = make_inspatio_engine(args.model_scale,
-                                    args.num_inference_steps, device)
-    drv_kw = {k: w for k, w in drv.items()
-              if k in ("mirror_left", "drift_correct",
-                       "apply_edge_blending")}
+    if args.infill_engine == "basic":
+        def infill(v, mask):
+            return infill_video.infill_sbs_video(
+                v, mask, max_frames=args.max_frames,
+                batch_size=args.batch_size, device=device)
+    else:
+        eng, drv = make_inspatio_engine(args.model_scale,
+                                        args.num_inference_steps, device)
+        drv_kw = {k: w for k, w in drv.items()
+                  if k in ("mirror_left", "drift_correct",
+                           "apply_edge_blending")}
+
+        def infill(v, mask):
+            return infill_diffusion.infill_sbs_video_diffusion(
+                v, mask, engine=eng, color_video=args.color_video,
+                max_frames=args.max_frames, **drv_kw)
     clips = dstage.expand_batch(args.sbs_color_video)
     outs = []
     for v in clips:
         mask = args.sbs_mask_video or (v + "_infillmask.mkv")
         try:
-            out = infill_diffusion.infill_sbs_video_diffusion(
-                v, mask, engine=eng, color_video=args.color_video,
-                max_frames=args.max_frames, **drv_kw)
+            out = infill(v, mask)
             outs.append(out)
             print(f"infilled video saved: {out}")
         except Exception as e:  # noqa: BLE001 - batch mode keeps going

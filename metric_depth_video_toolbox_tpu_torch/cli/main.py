@@ -1,11 +1,15 @@
 """``mdvt-torch`` -- the port's entry point, multiplexing its tools.
 
+  mdvt-torch movie     movie_2_3d: scenes -> depth -> masks -> convergence
+                       -> stereo -> basic infill -> <movie>_SBS.mkv
   mdvt-torch depth     video_metric_convert (VDA engine)
   mdvt-torch engine    per-engine depth CLIs (engine da3; the others are
                        not ported yet)
   mdvt-torch da3       DA3 multi-view depth + poses + xfovs (= engine da3)
   mdvt-torch stereo    stereo_rerender (disparity-sweep path)
-  mdvt-torch infill    SBS infill (--infill_engine inspatio_world)
+  mdvt-torch mask      generate_video_mask (U²-Net subject masks)
+  mdvt-torch convergence  find_convergence_depth
+  mdvt-torch infill    SBS infill (--infill_engine basic or inspatio_world)
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
@@ -28,11 +32,15 @@ SUBCOMMANDS = {
     "stereo": ("metric_depth_video_toolbox_tpu_torch.cli.stereo_rerender",
                "main"),
     "infill": ("metric_depth_video_toolbox_tpu_torch.cli.infill", "main"),
+    "mask": ("metric_depth_video_toolbox_tpu_torch.cli.generate_video_mask",
+             "main"),
+    "convergence": ("metric_depth_video_toolbox_tpu_torch.cli."
+                    "find_convergence_depth", "main"),
+    "movie": ("metric_depth_video_toolbox_tpu_torch.cli.movie_2_3d", "main"),
 }
 
-NOT_PORTED = ("mask", "convergence", "track", "align", "export", "movie",
-              "view", "split-sbs", "analyse-tracking", "analyse-depth",
-              "flow", "slam", "upscale", "project", "inpaint", "gui",
+NOT_PORTED = ("track", "align", "export", "view", "split-sbs",
+              "analyse-tracking", "analyse-depth", "flow", "slam", "upscale", "project", "inpaint", "gui",
               "download-weights", "bench")
 
 

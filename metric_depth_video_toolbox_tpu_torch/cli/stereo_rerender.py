@@ -21,8 +21,6 @@ _NOT_PORTED = {
     "load_background": "--load_background (ROADMAP A4: background mode)",
     "render_as_pointcloud": "--render_as_pointcloud (ROADMAP A3: "
                             "splat_points)",
-    "do_basic_infill": "--do_basic_infill (ROADMAP A7: normal-march "
-                       "infill)",
     "profile": "--profile",
 }
 
@@ -108,6 +106,7 @@ def run(args, device=None):
         infill_mask=args.infill_mask, remove_edges=remove_edges,
         place_edge_points=not args.dont_place_points_in_edges,
         green_and_black_infill_mask=args.green_and_black_infill_mask,
+        do_basic_infill=args.do_basic_infill,
         create_sbs_depth=args.create_sbs_depth_video,
         num_planes=args.num_planes, compressed=args.compressed,
         fused_anchor_sweep=args.fused_anchor_sweep, device=device)

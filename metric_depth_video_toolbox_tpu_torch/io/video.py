@@ -90,6 +90,16 @@ class VideoReader:
             self._remaining -= 1
         return frame[..., ::-1].copy()     # BGR -> RGB
 
+    def read_frame(self, n):
+        """Frame ``n`` (RGB uint8), None past the end. Seeks by
+        CAP_PROP_POS_FRAMES, exact on the intra-only codecs written here
+        (FFV1, HuffYUV)."""
+        self.cap.set(_cv2().CAP_PROP_POS_FRAMES, n)
+        ok, frame = self.cap.read()
+        if not ok:
+            return None
+        return frame[..., ::-1].copy()
+
     def read_batch(self, batch_size):
         """Up to ``batch_size`` frames as (T, H, W, 3) uint8, None at the
         end of the stream."""
@@ -121,6 +131,12 @@ def read_video_frames(path, start_frame=0, max_frames=-1, target_fps=-1):
             frames = frames[::stride]
             fps = fps / stride
         return frames, fps
+
+
+def video_info(path):
+    """(frame_count, width, height, fps) without decoding."""
+    with VideoReader(path) as r:
+        return r.frame_count, r.width, r.height, r.fps
 
 
 class PrefetchingBatchReader:
@@ -322,6 +338,23 @@ class DepthVideoReader(VideoReader):
         return codec.decode_depth_frame(
             torch.from_numpy(rgb), self.max_depth, bit16=self.bit16,
             average_rg=self.average_rg).numpy()
+
+
+def save_grayscale_video(frames, path, fps, max_value, width=None,
+                         height=None):
+    """Float frames (T, H, W[, 1]) -> 8-bit grayscale (R = G = B) lossless
+    video, clipped to [0, max_value] and scaled by max_value (by the
+    largest value, at least 1, when max_value <= 0)."""
+    frames = np.asarray(frames)
+    h, w = frames.shape[1:3]
+    denom = max_value if max_value > 0 else max(float(frames.max()), 1.0)
+    with VideoWriter(path, fps, width or w, height or h) as vw:
+        for f in frames:
+            if f.ndim == 3 and f.shape[-1] == 1:
+                f = f[..., 0]
+            g = (np.clip(f, 0, max_value) / denom * 255.0).astype(np.uint8)
+            vw.write(np.stack([g, g, g], axis=-1))
+    return True
 
 
 def save_rgb_video(frames, path, fps):

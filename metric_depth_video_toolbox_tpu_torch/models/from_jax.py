@@ -7,14 +7,17 @@ the layout changes of each leaf:
   Dense  ``kernel`` (in, out)      -> ``weight`` (out, in)
   Conv   ``kernel`` (H, W, I, O)   -> ``weight`` (O, I, H, W)
   Conv3D ``kernel`` (T, H, W, I, O) -> ``weight`` (O, I, T, H, W)
-  LayerNorm / GroupNorm ``scale``  -> ``weight``
+  LayerNorm / GroupNorm / EvalBatchNorm ``scale`` -> ``weight``
+  EvalBatchNorm ``mean`` / ``var`` -> the buffers of the same names
   ``bias``, LayerScale ``gamma``, ``cls_token``, ``pos_embed``, and Wan's
   ``modulation``, ``head_modulation``, ``prompt_tokens`` as they are.
 
 Covers ViT, DPTHead, DPTHeadTemporal, VideoDepthAnything, DepthAnything,
 DA3 (``backbone``, ``head.depth``, ``head.ray``, ``ray_embed``), and Wan's
 WanDiT, WanVAEEncoder and WanVAEDecoder (RMSNorm ``scale`` and
-FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale).
+FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale), and
+U2Net (``models.segmentation``; its batch norms' running statistics are
+buffers, which ``load_state_dict`` covers like parameters).
 The tree's leaves are taken as numpy arrays, so this module needs no JAX.
 """
 
@@ -58,7 +61,7 @@ def flax_to_state_dict(params):
 
 
 def load_flax_params(module, params):
-    """Load a Flax tree into ``module``; every parameter must be
-    covered and every leaf used."""
+    """Load a Flax tree into ``module``; every parameter and buffer must
+    be covered and every leaf used."""
     module.load_state_dict(flax_to_state_dict(params), strict=True)
     return module

@@ -1,13 +1,16 @@
 """Image-space ops (PyTorch port of the parts of ``ops/image.py`` that the
-stereo infill mask and the causal infill use): bilinear resize, bilinear
-sampling at float coordinates, separable Gaussian filters, masked blur and
-the two-scale diffusion inpaint.
+stereo infill mask, the basic and the causal infill use): bilinear resize,
+bilinear sampling at float coordinates, separable Gaussian filters, masked
+blur, 2D filtering, morphology and the two-scale diffusion inpaint.
 
 Images are channels-last at the public functions, (..., H, W, C), like the
-JAX package; the filters work on (..., H, W) planes.
+JAX package (a 2D tensor is one (H, W) plane); the morphology works on
+(..., H, W) masks and the internal filters on (..., H, W) planes.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +99,82 @@ def _sep_filter_chw(x, k1):
             acc = term if acc is None else acc + term
         x = acc
     return x
+
+
+def _channels_last(img):
+    """(..., H, W, C) or an (H, W) plane -> (float32 (..., C, H, W),
+    function taking such a result back to the input's layout)."""
+    if img.ndim == 2:
+        return img.to(torch.float32)[None], lambda y: y[0]
+    return (img.to(torch.float32).movedim(-1, -3),
+            lambda y: y.movedim(-3, -1))
+
+
+def _round_like(out, img):
+    """Integer inputs come back rounded (half to even) and clipped to
+    [0, 255] in their own dtype, as in the JAX package."""
+    if img.dtype.is_floating_point:
+        return out
+    return torch.clamp(torch.round(out), 0, 255).to(img.dtype)
+
+
+def gaussian_blur(img, ksize, sigma=0.0):
+    """Separable Gaussian blur with a zero border of (..., H, W, C) or
+    (H, W), float or uint8."""
+    x, back = _channels_last(img)
+    out = back(_sep_filter_chw(x, gaussian_kernel_1d(ksize, sigma,
+                                                     device=img.device)))
+    return _round_like(out, img)
+
+
+def filter2d(img, kernel):
+    """(..., H, W, C) or (H, W) cross-correlated with a (kh, kw) kernel,
+    zero border, the window's centre at ((kh - 1) // 2, (kw - 1) // 2)
+    (XLA's "SAME" padding). float32 out."""
+    x, back = _channels_last(img)
+    kh, kw = kernel.shape
+    lead = x.shape[:-2]
+    planes = x.reshape((-1, 1) + tuple(x.shape[-2:]))
+    top, left = (kh - 1) // 2, (kw - 1) // 2
+    planes = F.pad(planes, (left, kw - 1 - left, top, kh - 1 - top))
+    out = F.conv2d(planes, kernel.to(device=planes.device,
+                                     dtype=torch.float32).reshape(1, 1, kh, kw))
+    return back(out.reshape(lead + out.shape[-2:]))
+
+
+def _window_reduce(m, ksize, fill, largest):
+    """Max (or min) over a ksize x ksize window of (..., H, W) float32
+    planes, padded with ``fill``; the window's centre at ksize // 2, so an
+    even window reaches one pixel further up and left."""
+    lead = m.shape[:-2]
+    planes = m.reshape((-1, 1) + tuple(m.shape[-2:]))
+    lo, hi = ksize // 2, ksize - 1 - ksize // 2
+    planes = F.pad(planes, (lo, hi, lo, hi), value=fill)
+    if not largest:
+        planes = -planes
+    out = F.max_pool2d(planes, ksize, stride=1)
+    if not largest:
+        out = -out
+    return out.reshape(lead + out.shape[-2:])
+
+
+def _morph(mask, ksize, iterations, largest):
+    m = mask.to(torch.float32)
+    for _ in range(iterations):
+        m = _window_reduce(m, ksize, -math.inf if largest else math.inf,
+                           largest)
+    return m > 0.5 if mask.dtype == torch.bool else m.to(mask.dtype)
+
+
+def dilate(mask, ksize=3, iterations=1):
+    """Dilation of (..., H, W) binary or float masks with a square
+    structuring element."""
+    return _morph(mask, ksize, iterations, True)
+
+
+def erode(mask, ksize=3, iterations=1):
+    """Erosion of (..., H, W) masks, the dual of :func:`dilate`."""
+    return _morph(mask, ksize, iterations, False)
 
 
 def masked_blur(img, ksize=6, sigma=0.0, valid_mask=None):

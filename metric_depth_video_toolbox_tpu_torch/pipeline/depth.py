@@ -55,6 +55,9 @@ def read_list_file(path):
 
 
 def expand_batch(path_or_txt):
+    """A video path, a list of them, or a .txt list file -> paths."""
+    if isinstance(path_or_txt, (list, tuple)):
+        return list(path_or_txt)
     if isinstance(path_or_txt, str) and path_or_txt.lower().endswith(".txt"):
         return read_list_file(path_or_txt)
     return [path_or_txt]

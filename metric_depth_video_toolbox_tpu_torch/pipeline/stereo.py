@@ -23,6 +23,7 @@ import torch
 from metric_depth_video_toolbox_tpu_torch.ops import codec
 from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
 from metric_depth_video_toolbox_tpu_torch.ops import image as im
+from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
 from metric_depth_video_toolbox_tpu_torch.ops import rasterize
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 
@@ -30,8 +31,8 @@ from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class StereoConfig:
     """Configuration of the stereo renderer: the JAX package's fields for
-    the sweep path at the source size (its Touchly/VR180 outputs, basic
-    infill and other warps are not ported yet)."""
+    the sweep path at the source size (its Touchly/VR180 outputs and
+    other warps are not ported yet)."""
     width: int
     height: int
     max_depth: float = 100.0
@@ -40,6 +41,8 @@ class StereoConfig:
     place_edge_points: bool = True
     make_infill_mask: bool = False
     green_and_black_infill_mask: bool = False
+    # fill the holes with the normal-march infill before the SBS output
+    do_basic_infill: bool = False
     inpaint_iters: int = 48
     num_planes: int = 128
     has_convergence: bool = True
@@ -139,7 +142,8 @@ def render_eye(depth, color, k, transform, eye_shift_m, conv_angle,
             a_n = _normalized(a_extra * 2.0 - 1.0)
             mask_img = torch.where(write, (a_n + 1.0) / 2.0, mask_img)
 
-    if cfg.make_infill_mask and not cfg.green_and_black_infill_mask:
+    if ((cfg.make_infill_mask or cfg.do_basic_infill)
+            and not cfg.green_and_black_infill_mask):
         mask_img = _border_default_normals(mask_img, hole)
         # pixels still green (no anchor or border normal) or black get
         # normals diffused in from the seeded ones
@@ -152,6 +156,10 @@ def render_eye(depth, color, k, transform, eye_shift_m, conv_angle,
         keep = ~torch.all(mask_img == 0.0, dim=-1)
         mask_img = im.masked_blur(mask_img, ksize=5, valid_mask=keep)
         mask_img = torch.where(hole[..., None], mask_img, zero)
+
+    if cfg.do_basic_infill:
+        image = infill_ops.normal_march_infill(image, hole,
+                                               mask_img * 2.0 - 1.0)
 
     return image, res.depth, mask_img, hole
 
@@ -275,8 +283,7 @@ def render_stereo_video(depth_video, color_video=None, output=None,
             (mask_video is not None, "background mode (ROADMAP A4)"),
             (render_as_pointcloud, "point-cloud rendering (ROADMAP A3)"),
             (vr180 or touchly0 or touchly1,
-             "Touchly/VR180 outputs (ROADMAP A4)"),
-            (do_basic_infill, "basic infill (ROADMAP A7)")):
+             "Touchly/VR180 outputs (ROADMAP A4)")):
         if given:
             raise NotImplementedError(f"not ported yet: {what}")
     device = resolve_device(device)
@@ -297,7 +304,7 @@ def render_stereo_video(depth_video, color_video=None, output=None,
         remove_edges=remove_edges, place_edge_points=place_edge_points,
         make_infill_mask=infill_mask,
         green_and_black_infill_mask=green_and_black_infill_mask,
-        num_planes=num_planes,
+        do_basic_infill=do_basic_infill, num_planes=num_planes,
         has_convergence=convergence_depths is not None,
         fused_anchor_sweep=fused_anchor_sweep)
     output = output or (depth_video + "_stereo.mkv")

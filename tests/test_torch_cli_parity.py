@@ -74,3 +74,62 @@ def test_video_writer_resizes_like_reference(tmp_path):
     assert out["torch"].shape == (4, 60, 80, 3)
     np.testing.assert_array_equal(out["torch"], out["jax"])
     np.testing.assert_array_equal(out["torch"][3], frames[3])
+
+
+def _flags(parser):
+    """{option string: (dest, default)} of a parser's flags."""
+    return {opt: (a.dest, a.default) for a in parser._actions
+            for opt in a.option_strings if opt not in ("-h", "--help")}
+
+
+def _parsers(command):
+    import importlib
+
+    names = {"movie": "movie_2_3d", "mask": "generate_video_mask",
+             "convergence": "find_convergence_depth", "infill": "infill"}
+    return tuple(importlib.import_module(f"{pkg}.cli.{names[command]}")
+                 .build_parser() for pkg in (
+                     "metric_depth_video_toolbox_tpu",
+                     "metric_depth_video_toolbox_tpu_torch"))
+
+
+# flags of the reference parsers that the port leaves out; each is exempt
+# from parity only with a case in test_unported_options_raise below
+UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": ()}
+
+
+@pytest.mark.parametrize("command", sorted(UNPORTED_FLAGS))
+def test_port_parser_accepts_every_reference_flag(command):
+    ref, port = _parsers(command)
+    want, got = _flags(ref), _flags(port)
+    for opt, (dest, default) in want.items():
+        if opt in UNPORTED_FLAGS[command]:
+            continue
+        assert opt in got, f"{command}: {opt} missing"
+        assert got[opt] == (dest, default), (command, opt)
+
+
+# option values the port does not run yet: (command, argv, ROADMAP item)
+UNPORTED_OPTIONS = [
+    ("movie", ["--infill_engine", "diffusion"], "A11"),
+    ("movie", ["--parallel", "2"], "A16"),
+    ("movie", ["--quantize", "int8"], "A13"),
+    ("movie", ["--depth_engine", "unidepth"], "A13"),
+    ("infill", ["--infill_engine", "stereocrafter"], "A11"),
+]
+
+
+@pytest.mark.parametrize("command,argv,item", UNPORTED_OPTIONS)
+def test_unported_options_raise(tmp_path, monkeypatch, command, argv, item):
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    clip = str(tmp_path / "clip.mkv")
+    if command == "movie":
+        pytest.importorskip("cv2")
+        tvio.save_rgb_video(np.zeros((16, 24, 32, 3), np.uint8), clip, 24)
+        base = ["movie", "--color_video", clip, "--xfov", "60"]
+    else:
+        base = ["infill", "--sbs_color_video", clip]
+    with pytest.raises(NotImplementedError, match=item):
+        tmain.main(base + argv)
+    for opts in UNPORTED_FLAGS.values():
+        assert not set(opts) & set(argv)

@@ -692,3 +692,97 @@ def test_lhm_color_transfer_card_matches_cpu(cuda):
     want = iops.lhm_color_transfer(*args)
     got = iops.lhm_color_transfer(*(a.to(cuda) for a in args)).cpu()
     assert (got - want).abs().max().item() <= 1e-2
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 convolutions and products in full float32 on the card."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = old
+
+
+@pytest.mark.gpu
+def test_mask_engine_card_matches_cpu(cuda, no_tf32):
+    """U²-Net SEG_TINY in float32 (the same seeded weights) on the card
+    and on the CPU: probabilities within 1e-4, masks differing only where
+    the probability is within 1e-3 of the threshold."""
+    from metric_depth_video_toolbox_tpu_torch.models import segmentation
+    from metric_depth_video_toolbox_tpu_torch.pipeline import masks
+
+    frames = np.random.default_rng(5).integers(0, 256, (4, 90, 160, 3),
+                                               np.uint8)
+    engines = {where: masks.MaskEngine(cfg=segmentation.SEG_TINY, work=64,
+                                       device=where)
+               for where in ("cpu", cuda)}
+    p = {k: e.probabilities(frames).cpu() for k, e in engines.items()}
+    assert (p[cuda] - p["cpu"]).abs().max().item() <= 1e-4
+    m = {k: e.masks_for(frames) for k, e in engines.items()}
+    flips = m[cuda] != m["cpu"]
+    assert (np.abs(p["cpu"].numpy()[flips] - 0.5) < 1e-3).all()
+
+
+@pytest.mark.gpu
+def test_basic_infill_frame_card_matches_cpu(cuda):
+    """The march (which pixel each hole copies) bit for bit, the blurred
+    frames within one code."""
+    from metric_depth_video_toolbox_tpu_torch.ops import infill as iops
+    from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video
+
+    rng = np.random.default_rng(6)
+    sbs = torch.from_numpy(rng.integers(0, 256, (3, 120, 320, 3), np.uint8))
+    mask = rng.integers(0, 256, (3, 120, 320, 3), np.uint8)
+    mask[rng.random((3, 120, 320)) < 0.8] = 0
+    mask[:, 30:60, 100:130] = (0, 255, 0)
+    mask = torch.from_numpy(mask)
+    hole = mask.ne(0).any(-1)
+    normals = mask.float() / 255.0 * 2.0 - 1.0
+    want = iops.normal_march_infill(sbs, hole, normals)
+    got = iops.normal_march_infill(sbs.to(cuda), hole.to(cuda),
+                                   normals.to(cuda)).cpu()
+    assert torch.equal(got, want)
+    want = infill_video.basic_infill_frame(sbs, mask)
+    got = infill_video.basic_infill_frame(sbs.to(cuda), mask.to(cuda)).cpu()
+    assert (got.int() - want.int()).abs().max().item() <= 1
+
+
+@pytest.mark.gpu
+def test_movie_to_3d_on_the_card_launches_the_sweep(cuda, tmp_path):
+    """``movie_to_3d`` at a tiny size on the card (two 16-frame scenes,
+    VDA vitt, SEG_TINY masks, the basic infill, stereo batches of 4): the
+    disparity sweep runs twice per stereo batch, and no other kernel of
+    the port runs."""
+    pytest.importorskip("cv2")
+    from metric_depth_video_toolbox_tpu_torch.io import mkv
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.models import segmentation
+    from metric_depth_video_toolbox_tpu_torch.pipeline import masks, movie
+
+    rng = np.random.default_rng(7)
+    scenes = []
+    for tint in ((120, 0, 0), (0, 40, 120)):
+        base = rng.integers(0, 120, (14, 48, 3)) + np.array(tint)
+        tex = np.kron(base.astype(np.uint8), np.ones((4, 4, 1), np.uint8))
+        scenes.append(np.stack([tex[:48, 2 * i:2 * i + 64]
+                                for i in range(16)]))
+    clip = str(tmp_path / "clip.mkv")
+    vio.save_rgb_video(np.concatenate(scenes), clip, 24)
+    tables = (ws.LAUNCHES, bcm.LAUNCHES, apk.LAUNCHES)
+    for table in tables:
+        for key in table:
+            table[key] = 0
+    out = movie.movie_to_3d(
+        clip, xfov=60.0, batch_size=4, device=cuda,
+        engine_kwargs={"size": "vitt", "input_size": 42, "window": 8,
+                       "overlap": 2},
+        mask_engine=masks.MaskEngine(cfg=segmentation.SEG_TINY, work=40,
+                                     device=cuda))
+    counts = {k: v for table in tables for k, v in table.items() if v}
+    assert counts == {"disparity_sweep": 2 * 2 * 4}
+    with vio.VideoReader(out) as r:
+        assert (r.frame_count, r.width) == (32, 128)
+    assert mkv.get_stereo_mode(out) == mkv.STEREO_SBS_LEFT_FIRST

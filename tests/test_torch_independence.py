@@ -65,6 +65,13 @@ cfg = stereo.StereoConfig(width=64, height=32, make_infill_mask=True)
 out = stereo.stereo_step(cfg, rgb, col, k, torch.eye(4)[None],
                          torch.full((1,), 2.0), torch.ones(1))
 assert out["image"].shape == (1, 32, 128, 3)
+from metric_depth_video_toolbox_tpu_torch.models import segmentation
+from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video, masks
+filled = infill_video.basic_infill_frame(torch.from_numpy(out["image"]),
+                                         torch.from_numpy(out["infill_mask"]))
+assert filled.shape == (1, 32, 128, 3)
+seg = masks.MaskEngine(cfg=segmentation.SEG_TINY, work=32, device="cpu")
+assert seg.masks_for(out["image"][:, :, :64]).shape == (1, 32, 64)
 from metric_depth_video_toolbox_tpu_torch.models import wan
 from metric_depth_video_toolbox_tpu_torch.pipeline import infill_diffusion
 sbs = np.repeat(out["image"], 5, axis=0)

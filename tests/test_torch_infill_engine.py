@@ -284,7 +284,8 @@ def test_parser_matches_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    ([], "A7"), (["--infill_engine", "m2svid"], "A11"),
+    (["--infill_engine", "diffusion"], "A11"),
+    (["--infill_engine", "m2svid"], "A11"),
     (["--infill_engine", "external"], "A11"),
     (["--infill_engine", "inspatio_world", "--model_scale", "svd"], "A11"),
     (["--infill_engine", "inspatio_world", "--checkpoint", "x.npz"],

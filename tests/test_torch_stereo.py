@@ -181,7 +181,6 @@ def test_cli_flags_and_defaults_match(kind):
 
 
 @pytest.mark.parametrize("flag", ["--vr180", "--touchly0", "--touchly1",
-                                  "--do_basic_infill",
                                   "--render_as_pointcloud"])
 def test_unported_flags_raise(flag):
     args = tcli.build_parser().parse_args(
@@ -231,6 +230,22 @@ def _image_case(name, rng):
         return (jim.masked_blur(jnp.asarray(img), ksize=5,
                                 valid_mask=jnp.asarray(hole)),
                 tim.masked_blur(t_img, ksize=5, valid_mask=t_hole))
+    if name == "gaussian_blur":
+        return (jim.gaussian_blur(jnp.asarray(img), 7),
+                tim.gaussian_blur(t_img, 7))
+    if name == "gaussian_blur_plane":
+        return (jim.gaussian_blur(jnp.asarray(img[..., 0]), 4, 1.3),
+                tim.gaussian_blur(t_img[..., 0], 4, 1.3))
+    if name == "filter2d":
+        k = rng.random((4, 3)).astype(np.float32)
+        return (jim.filter2d(jnp.asarray(img), jnp.asarray(k)),
+                tim.filter2d(t_img, torch.from_numpy(k)))
+    if name == "dilate":     # an even window is asymmetric
+        return (jim.dilate(jnp.asarray(img[..., 0]), ksize=4, iterations=2),
+                tim.dilate(t_img[..., 0], ksize=4, iterations=2))
+    if name == "erode":      # a boolean mask stays boolean
+        return (jim.erode(jnp.asarray(hole), ksize=3).astype(jnp.float32),
+                tim.erode(t_hole, ksize=3).float())
     return (jim.inpaint_diffusion_multiscale(
                 jnp.asarray(img), jnp.asarray(hole), coarse_iters=16,
                 fine_iters=2, factor=8),
@@ -238,10 +253,13 @@ def _image_case(name, rng):
 
 
 @pytest.mark.parametrize("name", ["box_blur", "masked_blur",
-                                  "inpaint_diffusion_multiscale"])
+                                  "inpaint_diffusion_multiscale",
+                                  "gaussian_blur", "gaussian_blur_plane",
+                                  "filter2d", "dilate", "erode"])
 def test_image_ops_match(name):
-    """The infill mask's filters: within 1e-6 absolute on [0, 1] data
-    (float32 sums in another order; measured <= 2.4e-7)."""
+    """The image filters of the infill mask and the basic infill: within
+    1e-6 absolute on [0, 1] data (float32 sums in another order; measured
+    <= 2.4e-7)."""
     want, got = _image_case(name, np.random.default_rng(6))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
                                rtol=0)
