@@ -71,11 +71,28 @@ of which fails the run on error:
                 after (the disparity sweep twice per stereo batch, nothing
                 else); the scene CSV, the per-scene files, 80 final frames
                 of width 3840 and StereoMode 1 checked; each step's wall
-                time and the movie's source frames/s printed.
+                time and the movie's source frames/s printed. Then the
+                movie's ``--infill_engine diffusion`` as a resume of that
+                run: the scenes' infilled files and the final movie
+                deleted, the movie run again, so only steps 6-7 run (the
+                JAX package's default engine, DIFFUSION_TINY at 256 x 256,
+                per scene; counts zeroed before, read after: no launch).
+  7b. svd_infill the SVD-class infill through ``mdvt-torch infill`` on the
+                phase-4 SBS frames and mask as files: (a) ``diffusion`` at
+                its defaults (DIFFUSION_SVD, 768x1024, chunks 25/6, the
+                halo blend), (b) ``m2svid`` (512x512, the phase-3 clip as
+                mono conditioning), (c) ``--model_scale svd`` (the
+                StereoCrafter graph, SVDConfig, bf16) on 25 frames; each
+                with its parameter count, wall time, SBS frames/s, peak
+                device memory, one chunk's device busy share and top
+                device operations; counts zeroed before each, read after
+                (no hand-written kernel on this path).
   8. reference  the depth engine, the stereo step, a narrow Wan infill
-                chunk, a narrow DA3 (flash_packed), U²-Net SEG_TINY and
-                the basic infill at a small size in float32 on the card and
-                on the CPU: they must agree.
+                chunk, the SVD-class infill chunk (DIFFUSION_TINY with
+                mono, SVD_TINY with CLIP_TINY), a narrow DA3
+                (flash_packed), U²-Net SEG_TINY and the basic infill at a
+                small size in float32 on the card and on the CPU: they
+                must agree.
   9. files      depth -> stereo -> infill (--model_scale tiny), da3
                 (--model_size vitt) and stereo --fused_anchor_sweep file to
                 file through cli/main.py, where OpenCV is installed (else
@@ -1123,7 +1140,7 @@ def phase_da3(dev, zero_counts, counts):
     return res, eng, frames
 
 
-def phase_movie(dev, zero_counts, expect_counts):
+def phase_movie(dev, zero_counts, expect_counts, card):
     """``mdvt-torch movie`` file to file at its defaults on a synthetic
     1080p clip of two 40-frame scenes (the second with its channels
     reversed: a hard cut for the scene detector). -> (source frames/s,
@@ -1252,6 +1269,8 @@ def phase_movie(dev, zero_counts, expect_counts):
         with vio.VideoReader(sbs) as r:
             unfilled = r.read_frame(n - 1)
         filled = float(np.any(last != unfilled, axis=-1).mean())
+        diffusion = movie_diffusion_resume(clip, out_dir, final, n, dev,
+                                           zero_counts, expect_counts)
     fps = 2 * n / wall
     log("[movie] steps, wall s: " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()))
@@ -1264,7 +1283,323 @@ def phase_movie(dev, zero_counts, expect_counts):
         "kernel == plain bit for bit: " + "; ".join(
             f"{k} {v['shape']} (active tiles {v['active_share']:.4f})"
             for k, v in sweeps.items()))
-    return fps, steps, 2 * batches, sweeps
+    log(f"[movie] ({card}) --infill_engine diffusion, a resume of the run "
+        f"above (steps 6-7 only): {diffusion}")
+    return fps, steps, 2 * batches, sweeps, diffusion
+
+
+def movie_diffusion_resume(clip, out_dir, final, n, dev, zero_counts,
+                           expect_counts):
+    """The movie's ``--infill_engine diffusion`` as a resume: each scene's
+    infilled output and the final movie deleted, ``mdvt-torch movie`` run
+    again on the same directory, so steps 1-5 keep their files and step 6
+    runs the JAX package's default diffusion engine (DIFFUSION_TINY at 256
+    x 256, one per scene). -> its numbers"""
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.io import mkv
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.models import diffusion as dif
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+    from metric_depth_video_toolbox_tpu_torch.pipeline import movie
+
+    for k in (1, 2):
+        os.remove(os.path.join(
+            out_dir, f"scene_{k}.mkv_depth.mkv_stereo.mkv_infilled.mkv"))
+    os.remove(final)
+    built = []
+    engine = idf.DiffusionInfillEngine
+
+    def spy(**kw):
+        built.append(engine(**kw))
+        return built[-1]
+    zero_counts()
+    idf.DiffusionInfillEngine = spy
+    try:
+        t0 = time.perf_counter()
+        cli.main(["movie", "--color_video", clip, "--xfov", "60",
+                  "--infill_engine", "diffusion"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        idf.DiffusionInfillEngine = engine
+    expect_counts("movie --infill_engine diffusion (resume)", {},
+                  "0 disparity-sweep launches: steps 1-5 keep their files, "
+                  "so no stereo batch runs; the diffusion infill has no "
+                  "hand-written kernel")
+    engines = [(e.cfg, e.work_hw, e.chunk, e.overlap) for e in built]
+    if engines != [(dif.DIFFUSION_TINY, (256, 256), 25, 6)] * 2:
+        raise RuntimeError(f"movie diffusion: engines {engines}, expected "
+                           f"DIFFUSION_TINY at 256x256, one per scene")
+    count, width, height, _ = vio.video_info(final)
+    mode = mkv.get_stereo_mode(final)
+    if ((count, width, height) != (2 * n, 2 * W, H)
+            or mode != mkv.STEREO_SBS_LEFT_FIRST):
+        raise RuntimeError(f"movie diffusion: {final}: {count} frames of "
+                           f"{width}x{height}, StereoMode {mode}")
+    return {"wall_s": wall, "frames": count, "width": width,
+            "stereo_mode": mode, "disparity_sweep_launches": 0,
+            "steps_s": dict(movie.STEP_SECONDS)}
+
+
+SVD_FRAMES = 25                # svd_infill (c): one 25-frame chunk per eye
+
+
+def halo_reach(mask_rgb, dev):
+    """(T, H, W) bool: the pixels the halo blend may change (the lower
+    side of each edge, dilated 5 x 5 as the blend does, then by the 7 x 7
+    blur's reach)."""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.ops import image as im
+    from metric_depth_video_toolbox_tpu_torch.ops import infill as iops
+
+    out = []
+    for s in range(0, mask_rgb.shape[0], 8):
+        lower = iops.mark_lower_side(torch.as_tensor(mask_rgb[s:s + 8],
+                                                     device=dev))
+        band = im.dilate((lower[..., 2] == 255).float(), ksize=5)
+        out.append((im.dilate(band, ksize=7) > 0).cpu().numpy())
+    return np.concatenate(out)
+
+
+def profile_chunk(tag, eng, chunk, card):
+    """One chunk of ``eng`` timed unprofiled, then under torch.profiler:
+    -> (ms, device busy share); logs the top device operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.infill_chunk(*chunk)
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.infill_chunk(*chunk)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("infill.")]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[svd_infill] ({card}) {tag}: one chunk of {chunk[0].shape[0]} "
+        f"frames {wall:.3f} ms unprofiled, device busy {busy:.3f} ms "
+        f"({busy / wall:.1%}); top device operations:")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        ms = e.self_device_time_total / 1e3
+        log(f"[svd_infill]   {ms:9.3f} ms {ms / max(busy, 1e-9):6.1%} "
+            f"x{e.count:<5d} {e.key[:100]}")
+    kinds = {}
+    for e in events:
+        k = kind_of(e.key)
+        kinds[k] = kinds.get(k, 0.0) + e.self_device_time_total / 1e3
+    for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"[svd_infill]   by kind: {ms:9.3f} ms "
+            f"{ms / max(busy, 1e-9):6.1%} {k}")
+    return wall, busy / wall
+
+
+def phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts, expect_counts,
+                     card):
+    """``mdvt-torch infill`` through cli/main.py with the SVD-class engines
+    on the phase-4 SBS frames and infill mask, as files: (a) ``diffusion``
+    at its defaults (DIFFUSION_SVD, 768 x 1024, chunks of 25 overlapping by
+    6, the left eye mirrored, the halo blend on); (b) ``m2svid`` at 512 x
+    512 with the phase-3 clip as the mono conditioning, no halo; (c)
+    ``--model_scale svd`` (SVDConfig and SVDVAEConfig, bfloat16) on the
+    first 25 frames. Counts zeroed before each run and read after: no
+    hand-written kernel runs (attention is SDPA). -> {run: numbers}"""
+    try:
+        import cv2  # noqa: F401 - the CLI reads and writes video files
+    except ImportError as e:
+        raise RuntimeError("svd_infill: OpenCV (cv2) is not installed; the "
+                           "infill CLI reads and writes video files") from e
+    import gc
+
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.models import diffusion as dif
+    from metric_depth_video_toolbox_tpu_torch.models import svd
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+
+    n = sbs.shape[0]
+    hole = np.any(sbs_mask != 0, axis=-1)
+    reach = halo_reach(sbs_mask, dev)
+    runs = (
+        ("a production", ["--infill_engine", "diffusion"], n,
+         dif.DIFFUSION_SVD, (768, 1024), True),
+        ("b m2svid", ["--infill_engine", "m2svid", "--color_video", None],
+         n, dif.DIFFUSION_SVD, (512, 512), False),
+        ("c svd", ["--infill_engine", "diffusion", "--model_scale", "svd",
+                   "--max_frames", str(SVD_FRAMES)], SVD_FRAMES,
+         svd.SVDConfig(), (768, 1024), True))
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "sbs.mkv")
+        mono = os.path.join(tmp, "mono.mkv")
+        t0 = time.perf_counter()
+        vio.save_rgb_video(sbs, src, 24)
+        vio.save_rgb_video(sbs_mask, src + "_infillmask.mkv", 24)
+        vio.save_rgb_video(frames, mono, 24)
+        log(f"[svd_infill] ({card}) inputs written ({n} SBS frames "
+            f"{2 * W}x{H}, mask, mono clip): "
+            f"{time.perf_counter() - t0:.3f} s")
+        for tag, argv, t, cfg, work, halo in runs:
+            argv = [mono if a is None else a for a in argv]
+            built, finite = [], []
+            make = idf.make_engine
+
+            def capture(*a, **kw):
+                eng, drv = make(*a, **kw)
+                eng.on_latents = lambda z: finite.append(
+                    bool(torch.isfinite(z).all()))
+                built.append(eng)
+                return eng, drv
+            out = src + "_infilled.mkv"
+            if os.path.exists(out):
+                os.remove(out)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+            zero_counts()
+            idf.make_engine = capture
+            try:
+                t0 = time.perf_counter()
+                cli.main(["infill", "--sbs_color_video", src] + argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                idf.make_engine = make
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            expect_counts(f"svd_infill {tag}", {},
+                          "no hand-written kernel on the SVD-class infill: "
+                          "its attention is SDPA")
+            (eng,) = built
+            if eng.cfg != cfg or eng.work_hw != work:
+                raise RuntimeError(f"svd_infill {tag}: engine {eng.cfg} at "
+                                   f"{eng.work_hw}")
+            chunks = 2 * (1 + -(-max(t - eng.chunk, 0)
+                                // (eng.chunk - eng.overlap)))
+            if finite != [True] * chunks:
+                raise RuntimeError(f"svd_infill {tag}: latents finite per "
+                                   f"chunk {finite}, expected {chunks}")
+            with vio.VideoReader(out) as r:
+                got = r.read_all()
+            if got.shape != (t, H, 2 * W, 3) or got.dtype != np.uint8:
+                raise RuntimeError(f"svd_infill {tag}: output {got.shape} "
+                                   f"{got.dtype}")
+            # the first overlap/2 frames of each later chunk are the last
+            # chunk's last frames, as context (the JAX package's loop: a
+            # frame s + j of the chunk at s takes s + overlap - n_ctx + j)
+            ctx = {}
+            n_ctx = eng.overlap // 2
+            for s in range(eng.chunk - eng.overlap, t - eng.overlap,
+                           eng.chunk - eng.overlap):
+                ctx.update({s + j: s + eng.overlap - n_ctx + j
+                            for j in range(n_ctx)})
+            keep = ~hole[:t]
+            if halo:
+                keep &= ~reach[:t]
+            source = np.array([ctx.get(i, i) for i in range(t)])
+            keep &= ~hole[source]
+            if not np.array_equal(got[keep], sbs[source][keep]):
+                raise RuntimeError(f"svd_infill {tag}: pixels outside the "
+                                   f"holes{' and the halo band' * halo} "
+                                   f"changed")
+            changed = float((got[hole[:t]] != sbs[:t][hole[:t]]).any(
+                -1).mean())
+            if not changed > 0.5:
+                raise RuntimeError(f"svd_infill {tag}: only {changed:.3f} "
+                                   f"of hole pixels changed")
+            params = eng.num_parameters()
+            log(f"[svd_infill] ({card}) {tag}: {type(eng.model).__name__} "
+                f"{params} parameters, {eng.cfg.dtype}, {t} SBS frames "
+                f"{2 * W}x{H} -> {work[0]}x{work[1]} in {chunks} chunks of "
+                f"{eng.chunk} (overlap {eng.overlap}), halo blend {halo}: "
+                f"{wall:.3f} s wall through the CLI (weights drawn, files "
+                f"read and written), {t / wall:.3f} SBS frames/s; peak "
+                f"device memory {peak:.2f} GiB, {peak - held:.2f} GiB over "
+                f"the {held:.2f} GiB the earlier phases hold; {changed:.4f} "
+                f"of hole pixels "
+                f"changed, the rest unchanged (context frames "
+                f"{sorted(ctx)} hold their source frames)")
+            eye = (np.ascontiguousarray(sbs[:eng.chunk, :, W:]),
+                   hole[:eng.chunk, :, W:],
+                   frames[:eng.chunk] if eng.mono_conditioning else None)
+            eng.on_latents = None
+            chunk_ms, busy = profile_chunk(tag, eng, eye, card)
+            results[tag.split()[1]] = {
+                "parameters": params, "wall_s": wall, "sbs_fps": t / wall,
+                "peak_gib": peak, "peak_over_held_gib": peak - held,
+                "chunk_ms": chunk_ms, "busy_share": busy,
+                "frames": t, "chunks": chunks}
+            del built[:], eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_reference_svd_infill(dev, card):
+    """DiffusionInfillEngine.infill_chunk in float32 on the same weights
+    and noise on the card and on the CPU: DIFFUSION_TINY with mono
+    conditioning, and SVD_TINY with a CLIP_TINY context. Latents within
+    1e-4 of their largest value, uint8 within 1 LSB on at most 0.5% of
+    bytes, the pixels outside the holes unchanged."""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import clip, diffusion
+    from metric_depth_video_toolbox_tpu_torch.models import svd
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+
+    rng = np.random.default_rng(13)
+    frames = rng.integers(0, 256, (5, 90, 160, 3), np.uint8)
+    hole = np.zeros((5, 90, 160), bool)
+    hole[:, 20:60, 30:90] = True
+    mono = rng.integers(0, 256, (5, 90, 160, 3), np.uint8)
+    tower = diffusion.init_weights(clip.CLIPVisionTower(clip.CLIP_TINY),
+                                   torch.Generator().manual_seed(2))
+    for name, kw in (("DIFFUSION_TINY + mono", dict(mono_conditioning=True)),
+                     ("SVD_TINY + CLIP_TINY", dict(
+                         cfg=svd.SVD_TINY, vae_cfg=svd.SVD_VAE_TINY,
+                         clip_cfg=clip.CLIP_TINY,
+                         clip_params=tower.state_dict()))):
+        kw.update(work_hw=(64, 96), chunk=5)
+        cpu = idf.DiffusionInfillEngine(device="cpu", **kw)
+        cpu._ensure()
+        on_card = idf.DiffusionInfillEngine(device=dev, params=cpu.model
+                                            .state_dict(), **kw)
+        with torch.no_grad():
+            lat = cpu.model.encode(torch.zeros((5, 64, 96, 3))).shape
+        noise = torch.randn(lat, generator=torch.Generator().manual_seed(3))
+        z, out = {}, {}
+        for where, eng in (("cpu", cpu), ("card", on_card)):
+            eng.on_latents = lambda v, where=where: z.setdefault(where,
+                                                                 v.cpu())
+            out[where] = eng.infill_chunk(frames, hole, mono, noise=noise)
+        err = float((z["card"] - z["cpu"]).abs().max()
+                    / z["cpu"].abs().max())
+        d = np.abs(out["card"].astype(int) - out["cpu"].astype(int))
+        share = float((d > 0).mean())
+        log(f"[reference] ({card}) {name} infill chunk f32, 5 frames "
+            f"90x160 -> "
+            f"64x96, card vs CPU: latents max err {err:.3e} of the largest "
+            f"(limit 1e-4), uint8 max {int(d.max())} LSB on {share:.5f} of "
+            f"bytes (limit 1 LSB on 0.5%)")
+        if (err > 1e-4 or d.max() > 1 or share > 0.005
+                or not np.array_equal(out["card"][~hole], frames[~hole])):
+            raise RuntimeError(f"reference: the card's {name} infill "
+                               f"disagrees with the CPU's")
 
 
 def phase_reference_movie(dev):
@@ -1836,12 +2171,15 @@ def main():
 
     da3_res, da3_eng, da3_frames = phase_da3(dev, zero_counts, counts)
 
-    movie_fps, movie_steps, movie_launches, movie_sweeps = phase_movie(
-        dev, zero_counts, expect_counts)
+    movie_fps, movie_steps, movie_launches, movie_sweeps, movie_diffusion = \
+        phase_movie(dev, zero_counts, expect_counts, smi[0])
+    svd_infill = phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts,
+                                  expect_counts, smi[0])
 
     phase_reference(dev)
     phase_reference_movie(dev)
     phase_reference_infill(sbs, sbs_mask, frames, dev)
+    phase_reference_svd_infill(dev, smi[0])
     phase_reference_da3(dev)
     phase_files(dev)
     phase_profile(metric, frames, (eng, eye),
@@ -1948,7 +2286,9 @@ def main():
                     "infill_sbs_fps": infill_fps, "infill_s": infill_s,
                     "infill_peak_gib": infill_peak}))
     log(json.dumps({"movie": {"source_frames": 2 * MOVIE_SCENE_FRAMES,
-                              "fps": movie_fps, "steps_s": movie_steps}}))
+                              "fps": movie_fps, "steps_s": movie_steps,
+                              "diffusion_resume": movie_diffusion}}))
+    log(json.dumps({"svd_infill": svd_infill, "card": smi[0]}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])
     log(json.dumps({"ok": True, "device": {

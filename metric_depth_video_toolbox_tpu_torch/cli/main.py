@@ -1,7 +1,7 @@
 """``mdvt-torch`` -- the port's entry point, multiplexing its tools.
 
   mdvt-torch movie     movie_2_3d: scenes -> depth -> masks -> convergence
-                       -> stereo -> basic infill -> <movie>_SBS.mkv
+                       -> stereo -> infill -> <movie>_SBS.mkv
   mdvt-torch depth     video_metric_convert (VDA engine)
   mdvt-torch engine    per-engine depth CLIs (engine da3; the others are
                        not ported yet)
@@ -9,7 +9,7 @@
   mdvt-torch stereo    stereo_rerender (disparity-sweep path)
   mdvt-torch mask      generate_video_mask (U²-Net subject masks)
   mdvt-torch convergence  find_convergence_depth
-  mdvt-torch infill    SBS infill (--infill_engine basic or inspatio_world)
+  mdvt-torch infill    SBS infill (every --infill_engine of the JAX CLI)
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.

@@ -2,8 +2,8 @@
 the same flags and defaults).
 
 ``--depth_engine`` vda (default) or da3; the JAX package's other engines,
-``--quantize int8``, ``--infill_engine diffusion`` and ``--parallel`` > 1
-raise NotImplementedError naming their ROADMAP item.
+``--quantize int8`` and ``--parallel`` > 1 raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations

@@ -216,6 +216,16 @@ def _matrix_sqrt_psd(a, eps=1e-8):
             (vecs / torch.sqrt(vals)[..., None, :]) @ vt)
 
 
+def halo_blend(frames_u8, masks_rgb_u8):
+    """The lower-edge halo blend of (B, H, W, 3) uint8 frames by their
+    infill-mask frames: the background side of each disocclusion edge
+    (:func:`mark_lower_side`), dilated 5 x 5, blends each frame with its
+    7 x 7 blur (:func:`blur_under_mask`). -> (B, H, W, 3) uint8."""
+    lower = mark_lower_side(masks_rgb_u8)
+    lm = im.dilate((lower[..., 2] == 255).to(torch.float32), ksize=5)
+    return blur_under_mask(frames_u8, lm, ksize=7)
+
+
 def lhm_color_transfer(generated, reference, ref_weights=None):
     """Linear histogram matching: give ``generated`` the mean and covariance
     of ``reference``, whose statistics are weighted (e.g. masked to

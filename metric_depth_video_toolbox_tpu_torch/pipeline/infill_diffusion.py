@@ -1,5 +1,15 @@
-"""Diffusion infill of SBS video: the InSpatio-World-class causal engine
-(PyTorch port of ``pipeline/infill_diffusion.py``).
+"""Diffusion infill of SBS video (PyTorch port of
+``pipeline/infill_diffusion.py``): the SVD-class engines (stereocrafter,
+m2svid, the ``diffusion`` engine) and the InSpatio-World-class causal
+engine, behind one chunk loop.
+
+:class:`DiffusionInfillEngine` runs ``models.diffusion.VideoInpainter`` (or,
+with an ``SVDConfig``, the weight-exact ``models.svd.SVDInpainter``) at a
+fixed working size: the masked frames and the hole mask are encoded to
+latents (plus the mono video's latent with ``mono_conditioning``, plus a
+CLIP embedding of the first masked frame with ``clip_params``), the
+sampler denoises from noise, and the decoded frames are resized back,
+LHM colour-matched against the non-hole pixels and pasted inside the holes.
 
 :class:`CausalInfillEngine` runs the Wan-class causal DiT over Wan-VAE
 latents, conditioned on three latent videos: the render with its holes
@@ -7,28 +17,173 @@ blacked out, the source video (encoded once and shared by both eyes), and
 the hole mask (4 temporal channels per latent frame). The chunk pads so its
 latent frames split into causal blocks of 3; the sampler generates them
 block by block in a few flow steps; the decode is interleaved with the
-composite (resize back, LHM colour match against the non-hole pixels,
-paste inside the holes), so the full decoded video never exists at once.
+composite, so the full decoded video never exists at once.
 
-:func:`infill_sbs_frames` is the per-eye chunk loop on in-memory arrays;
-:func:`infill_sbs_video_diffusion` reads and writes the files around it.
-The SVD-class engines (stereocrafter, m2svid) wait for ROADMAP A11.
+:func:`infill_sbs_frames` is the per-eye chunk loop on in-memory arrays,
+with the lower-edge halo blend; :func:`infill_sbs_video_diffusion` reads and
+writes the files around it; :func:`infill_sbs_video_external` runs a
+user's command with the same file contract.
 """
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
+from metric_depth_video_toolbox_tpu_torch.models import diffusion as dif
+from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import wan as wan_mod
 from metric_depth_video_toolbox_tpu_torch.ops import drift as dr
 from metric_depth_video_toolbox_tpu_torch.ops import image as im
 from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 
-_A11 = "ROADMAP A11: SVD-class diffusion infill"
+
+def _load(module, params):
+    """Load a port state dict, or a Flax tree through ``models.from_jax``."""
+    if all(torch.is_tensor(v) for v in params.values()):
+        module.load_state_dict(params, strict=True)
+    else:
+        from_jax.load_flax_params(module, params)
+    return module
+
+
+def _store_in_compute_dtype(module):
+    """Store the weights of every layer that computes in bfloat16 in
+    bfloat16 (each casts its weights before the product anyway), so the
+    forward makes no casting copies and the weights take half the memory."""
+    for m in module.modules():
+        if getattr(m, "compute_dtype", None) == torch.bfloat16:
+            m.to(torch.bfloat16)
+    return module
+
+
+class DiffusionInfillEngine:
+    """SVD-class infill of one eye's chunk at a fixed working size.
+
+    ``cfg``: a ``DiffusionConfig`` (default ``DIFFUSION_TINY``) or an
+    ``SVDConfig`` (the weight-exact StereoCrafter graph, with ``vae_cfg``,
+    default ``SVDVAEConfig()``). ``params``: the inpainter's weights as a
+    port state dict or a Flax tree; None draws seeded weights (``rng_seed``)
+    with a ``torch.Generator`` on the engine's device. ``clip_params``
+    (state dict or Flax tree of ``models.clip.CLIPVisionTower`` at
+    ``clip_cfg``, default ``CLIP_VIT_H``) conditions the SVD graph's
+    cross-attention on the CLIP embedding of the chunk's first masked
+    frame. ``data_parallel`` is accepted for the JAX package's signature;
+    one card runs the whole chunk (a frame mesh is ROADMAP A16).
+
+    ``on_latents``: None, or a callable that ``infill_chunk`` calls with
+    each chunk's sampled latents (T, lh, lw, latent) before they are
+    decoded.
+    """
+
+    def __init__(self, cfg=None, params=None, work_hw=(256, 256),
+                 chunk=25, overlap=6, rng_seed=0, mono_conditioning=False,
+                 data_parallel=True, vae_cfg=None, clip_params=None,
+                 clip_cfg=None, device=None):
+        del data_parallel
+        self.cfg = cfg or dif.DIFFUSION_TINY
+        self.vae_cfg = vae_cfg
+        self.clip_cfg = clip_cfg
+        self.work_hw = tuple(work_hw)
+        self.chunk = chunk
+        self.overlap = overlap
+        self.mono_conditioning = mono_conditioning
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rng_seed)
+        self._params = params
+        self._clip_params = clip_params
+        self.model = self.clip = None
+        self.on_latents = None
+
+    def _ensure(self):
+        if self.model is not None:
+            return
+        with torch.device(self.device):
+            if hasattr(self.cfg, "cross_attention_dim"):
+                from metric_depth_video_toolbox_tpu_torch.models import \
+                    svd as svdm
+                model = svdm.SVDInpainter(
+                    self.cfg, self.vae_cfg or svdm.SVDVAEConfig(),
+                    mono=self.mono_conditioning)
+                if self._clip_params is not None:
+                    from metric_depth_video_toolbox_tpu_torch.models import \
+                        clip as clip_mod
+                    self.clip = _load(clip_mod.CLIPVisionTower(
+                        self.clip_cfg or clip_mod.CLIP_VIT_H),
+                        self._clip_params).eval()
+            else:
+                model = dif.VideoInpainter(self.cfg,
+                                           mono=self.mono_conditioning)
+        if self._params is None:
+            dif.init_weights(model, self.generator)
+        else:
+            _load(model, self._params)
+        self._params = self._clip_params = None
+        self.model = _store_in_compute_dtype(model).eval()
+
+    def num_parameters(self):
+        """Parameters of the inpainter (and of the CLIP tower, if any)."""
+        self._ensure()
+        mods = [self.model] + ([self.clip] if self.clip is not None else [])
+        return sum(p.numel() for m in mods for p in m.parameters())
+
+    def _to_work(self, frames_u8):
+        """(T, H, W, 3) uint8 on the device -> (T, wh, ww, 3) in [0, 1],
+        bilinear (antialiased when shrinking)."""
+        return im.resize(frames_u8.float() / 255.0, self.work_hw)
+
+    @torch.no_grad()
+    def infill_chunk(self, frames_u8, hole_mask, mono_u8=None, noise=None):
+        """(T, H, W, 3) uint8 + (T, H, W) bool holes -> infilled (T, H, W, 3)
+        uint8 numpy. ``mono_u8``: the source view's frames, the
+        conditioning of an engine built with ``mono_conditioning`` (zeros
+        when None). ``noise``: the sampler's standard normal draw (T, lh,
+        lw, latent), from the engine's generator when None."""
+        self._ensure()
+        model, dev = self.model, self.device
+        f_dev = torch.as_tensor(np.ascontiguousarray(frames_u8), device=dev)
+        m_dev = torch.as_tensor(np.ascontiguousarray(hole_mask), device=dev)
+        h, w = f_dev.shape[1:3]
+        with record_function("infill.encode"):
+            fw = self._to_work(f_dev)
+            mw = resize_mask(m_dev, self.work_hw)
+            masked = fw * (1.0 - mw[..., None])
+            del fw
+            cond_lat = model.encode(masked)
+            # the mask on the latent grid: the antialiased linear shrink
+            parts = [cond_lat, im.resize(mw[..., None], cond_lat.shape[1:3])]
+            if self.mono_conditioning:
+                mono = (torch.zeros_like(f_dev) if mono_u8 is None else
+                        torch.as_tensor(np.ascontiguousarray(mono_u8),
+                                        device=dev))
+                parts.append(model.encode(self._to_work(mono)))
+            cond = torch.cat(parts, dim=-1)
+            ctx = None
+            if self.clip is not None:
+                from metric_depth_video_toolbox_tpu_torch.models import \
+                    clip as clip_mod
+                # the SVD graph cross-attends to the CLIP embedding of the
+                # conditioning frame (chunk frame 0)
+                ctx = self.clip(clip_mod.preprocess(
+                    masked[:1], self.clip.cfg.image_size))[:, None, :]
+            del masked
+        if noise is None:
+            noise = torch.randn(cond_lat.shape, generator=self.generator,
+                                device=dev)
+        with record_function("infill.sample"):
+            z = dif.sample(lambda zz, s, c: model.denoise(zz, s, c, ctx),
+                           noise.to(dev), self.cfg, cond)
+        del cond
+        if self.on_latents is not None:
+            self.on_latents(z)
+        with record_function("infill.decode_composite"):
+            out = im.resize(model.decode(z).float(), (h, w)) * 255.0
+            return _paste(out, f_dev, m_dev).cpu().numpy()
 
 
 class CausalInfillEngine:
@@ -183,8 +338,7 @@ def resize_mask(mask, out_hw):
     """(T, H, W) mask -> (T, h, w) float32 by nearest neighbour with
     half-pixel centres (``jax.image.resize(..., "nearest")``; torch's
     ``nearest`` mode rounds differently)."""
-    return F.interpolate(mask.float()[:, None], size=tuple(out_hw),
-                         mode="nearest-exact")[:, 0]
+    return dif.resize_nearest(mask.float()[:, None], out_hw)[:, 0]
 
 
 def _pad_frames(x, tp):
@@ -197,31 +351,43 @@ def _pad_frames(x, tp):
 
 def _composite(decoded, f_u8, hole):
     """Decoded frames (L, wh, ww, 3) in [-1, 1] -> resized to the render's
-    size, LHM colour-matched against its non-hole pixels, pasted inside the
-    holes: (L, H, W, 3) uint8 (clip, then truncate, as the JAX package)."""
+    size and pasted (:func:`_paste`)."""
     h, w = f_u8.shape[1:3]
-    out = im.resize((decoded.float() * 0.5 + 0.5) * 255.0, (h, w))
+    return _paste(im.resize((decoded.float() * 0.5 + 0.5) * 255.0, (h, w)),
+                  f_u8, hole)
+
+
+def _paste(out, f_u8, hole):
+    """Generated frames (L, H, W, 3) on [0, 255] -> LHM colour-matched
+    against the render's non-hole pixels, pasted inside the holes:
+    (L, H, W, 3) uint8 (clip, then truncate, as the JAX package)."""
     f = f_u8.float()
     outm = infill_ops.lhm_color_transfer(out, f, 1.0 - hole.float())
     comp = torch.where(hole[..., None], outm, f)
     return torch.clamp(comp, 0, 255).to(torch.uint8)
 
 
+# frames per batch of the halo blend on the device (a 1080p SBS frame's
+# float32 temporaries are ~50 MB each)
+HALO_BATCH = 8
+
+
 def infill_sbs_frames(frames, hole, engine, mono=None, mirror_left=True,
-                      drift_correct=False, apply_edge_blending=False):
+                      drift_correct=False, apply_edge_blending=False,
+                      masks_rgb=None):
     """The chunked SBS loop on in-memory arrays: (T, H, 2W, 3) uint8 SBS
     frames and (T, H, 2W) bool holes -> infilled SBS frames (numpy).
 
     Each eye runs in chunks of ``engine.chunk`` frames overlapping by
     ``engine.overlap``; the first overlap/2 frames of a chunk are the last
     chunk's infilled frames, as context. ``mono``: the source video, the
-    engine's shared conditioning. ``drift_correct`` runs the
-    phase-correlation drift fix of each generated chunk against its render
-    (on the engine's device)."""
-    if apply_edge_blending:
-        raise NotImplementedError(f"not ported yet: --apply_edge_blending "
-                                  f"(mark_lower_side and the halo blend, "
-                                  f"{_A11})")
+    engine's conditioning. ``drift_correct`` runs the phase-correlation
+    drift fix of each generated chunk against its render, and
+    ``apply_edge_blending`` the halo blend (``ops.infill.halo_blend``) of the
+    result by ``masks_rgb`` (T, H, 2W, 3), both on the engine's device."""
+    if apply_edge_blending and masks_rgb is None:
+        raise ValueError("apply_edge_blending needs the infill-mask frames "
+                         "(masks_rgb)")
     t = frames.shape[0]
     half = frames.shape[2] // 2
     out_frames = frames.copy()
@@ -260,22 +426,32 @@ def infill_sbs_frames(frames, hole, engine, mono=None, mirror_left=True,
             start += engine.chunk - engine.overlap if end < t else \
                 engine.chunk
         out_frames[:, :, cols] = result[:, :, ::-1] if flip else result
+    if apply_edge_blending:
+        with record_function("infill.halo_blend"):
+            for s in range(0, t, HALO_BATCH):
+                sl = slice(s, s + HALO_BATCH)
+                out_frames[sl] = infill_ops.halo_blend(
+                    torch.as_tensor(out_frames[sl], device=engine.device),
+                    torch.as_tensor(np.ascontiguousarray(masks_rgb[sl]),
+                                    device=engine.device)).cpu().numpy()
     return out_frames
 
 
 def infill_sbs_video_diffusion(sbs_video, infill_mask_video, output=None,
                                color_video=None, engine=None,
-                               max_frames=-1, mirror_left=True,
-                               drift_correct=False,
-                               apply_edge_blending=True):
+                               max_frames=-1, chunk=25, overlap=6,
+                               mirror_left=True, drift_correct=False,
+                               apply_edge_blending=True, device=None):
     """Chunked diffusion infill of an SBS video file (see
     :func:`infill_sbs_frames`); writes ``output`` (default
-    ``<sbs>_infilled.mkv``) and returns its path."""
+    ``<sbs>_infilled.mkv``) and returns its path. Without ``engine`` it
+    builds the JAX package's default: ``DiffusionInfillEngine(chunk=chunk,
+    overlap=overlap)``, which is ``DIFFUSION_TINY`` at 256 x 256 on seeded
+    weights (the movie's ``--infill_engine diffusion`` runs this)."""
     from metric_depth_video_toolbox_tpu_torch.io import video as vio
 
-    if engine is None:
-        raise NotImplementedError(f"not ported yet: the default "
-                                  f"stereocrafter engine ({_A11})")
+    engine = engine or DiffusionInfillEngine(chunk=chunk, overlap=overlap,
+                                             device=device)
     output = output or (sbs_video + "_infilled.mkv")
     with vio.VideoReader(sbs_video, max_frames=max_frames) as sv:
         frames = sv.read_all()
@@ -283,7 +459,8 @@ def infill_sbs_video_diffusion(sbs_video, infill_mask_video, output=None,
     with vio.VideoReader(infill_mask_video) as mv:
         masks_rgb = mv.read_all()
     t = frames.shape[0]
-    hole = np.any(masks_rgb[:t] != 0, axis=-1)
+    masks_rgb = masks_rgb[:t]
+    hole = np.any(masks_rgb != 0, axis=-1)
     mono = None
     if color_video and getattr(engine, "mono_conditioning", False):
         with vio.VideoReader(color_video, max_frames=max_frames) as cvr:
@@ -291,7 +468,8 @@ def infill_sbs_video_diffusion(sbs_video, infill_mask_video, output=None,
     out = infill_sbs_frames(frames, hole, engine, mono=mono,
                             mirror_left=mirror_left,
                             drift_correct=drift_correct,
-                            apply_edge_blending=apply_edge_blending)
+                            apply_edge_blending=apply_edge_blending,
+                            masks_rgb=masks_rgb)
     vio.save_rgb_video(out, output, fps)
     return output
 
@@ -319,16 +497,47 @@ def make_engine(preset="stereocrafter", cfg=None, params=None, device=None,
                 **overrides):
     """Build an infill engine + the chunk loop's keyword arguments from a
     preset. ``inspatio_world`` (or any WanConfig cfg) builds the Wan-class
-    causal engine; the SVD-class presets are not ported yet."""
+    causal engine; the other presets build the SVD-class
+    :class:`DiffusionInfillEngine` (``cfg`` None: ``DIFFUSION_TINY``, as in
+    the JAX package)."""
     p = dict(ENGINE_PRESETS[preset])
     p.update(overrides)
-    if preset != "inspatio_world" and not isinstance(cfg,
-                                                     wan_mod.WanConfig):
-        raise NotImplementedError(f"not ported yet: the {preset} engine "
-                                  f"({_A11})")
-    eng = CausalInfillEngine(
-        cfg=cfg if isinstance(cfg, wan_mod.WanConfig) else None,
-        params=params, work_hw=p.pop("work_hw"), chunk=p["chunk"],
+    if preset == "inspatio_world" or isinstance(cfg, wan_mod.WanConfig):
+        eng = CausalInfillEngine(
+            cfg=cfg if isinstance(cfg, wan_mod.WanConfig) else None,
+            params=params, work_hw=p.pop("work_hw"), chunk=p["chunk"],
+            overlap=p["overlap"],
+            mono_conditioning=p.pop("mono_conditioning", True),
+            device=device)
+        for k in ("vae_cfg", "clip_params", "clip_cfg"):
+            p.pop(k, None)
+        return eng, p
+    eng = DiffusionInfillEngine(
+        cfg=cfg, params=params, work_hw=p.pop("work_hw"), chunk=p["chunk"],
         overlap=p["overlap"],
-        mono_conditioning=p.pop("mono_conditioning", True), device=device)
+        mono_conditioning=p.pop("mono_conditioning", False),
+        vae_cfg=p.pop("vae_cfg", None),
+        clip_params=p.pop("clip_params", None),
+        clip_cfg=p.pop("clip_cfg", None), device=device)
     return eng, p
+
+
+def infill_sbs_video_external(sbs_video, infill_mask_video, command,
+                              output=None, color_video=None):
+    """The external infill engine hook: run ``command`` (an argv list) with
+    ``--sbs_color_video``, ``--sbs_mask_video``, ``--output`` (and
+    ``--color_video``) appended; it must write the infilled video to
+    ``--output``. Raises RuntimeError with the end of its stderr if it
+    fails. Returns the output path."""
+    output = output or (sbs_video + "_infilled.mkv")
+    argv = list(command) + ["--sbs_color_video", sbs_video,
+                            "--sbs_mask_video", infill_mask_video,
+                            "--output", output]
+    if color_video:
+        argv += ["--color_video", color_video]
+    res = subprocess.run(argv, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"external infill engine failed ({res.returncode}):\n"
+            f"{res.stderr[-2000:]}")
+    return output

@@ -5,8 +5,8 @@ Input: the SBS video and its ``*_infillmask.mkv`` (normals encoded as RGB;
 green = hole without normal data; black = keep). Output:
 ``<sbs>_infilled.mkv``. The ``basic`` engine is the normal-march infill
 with a blur under the lower side of each disocclusion edge; the
-``diffusion`` engine (the SVD-class ``DiffusionInfillEngine``) is not
-ported yet.
+``diffusion`` engine is the JAX package's default SVD-class
+``DiffusionInfillEngine`` (``pipeline.infill_diffusion``).
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metric_depth_video_toolbox_tpu_torch.ops import image as im
 from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 
@@ -26,17 +25,14 @@ def basic_infill_frame(sbs_u8, mask_rgb_u8):
     Holes are the pixels whose mask is not black. The march runs on the
     normals ``mask * 2 - 1``, as in the JAX package: a green-coded pixel
     (0, 255, 0) arrives as (-1, 1, -1), which is not the march's green
-    code (0, 1, 0), so it marches diagonally like any other. Then the
-    background side of each edge is marked, dilated (5 x 5) and blended
-    with its blur (7 x 7).
+    code (0, 1, 0), so it marches diagonally like any other. Then the halo
+    blend (``ops.infill.halo_blend``): the background side of each edge is
+    marked, dilated (5 x 5) and blended with its blur (7 x 7).
     """
     mask = mask_rgb_u8.to(torch.float32) / 255.0
     hole = torch.any(mask_rgb_u8 != 0, dim=-1)
     filled = infill_ops.normal_march_infill(sbs_u8, hole, mask * 2.0 - 1.0)
-    lower = infill_ops.mark_lower_side(mask_rgb_u8)
-    lower_m = im.dilate((lower[..., 2] == 255).to(torch.float32), ksize=5)
-    return infill_ops.blur_under_mask(filled, lower_m, ksize=7).to(
-        torch.uint8)
+    return infill_ops.halo_blend(filled, mask_rgb_u8).to(torch.uint8)
 
 
 def infill_sbs_video(sbs_video, infill_mask_video, output=None,
@@ -47,11 +43,12 @@ def infill_sbs_video(sbs_video, infill_mask_video, output=None,
     the diffusion engine's input; the basic engine does not read it."""
     from metric_depth_video_toolbox_tpu_torch.io import video as vio
 
-    del color_video
     if engine == "diffusion":
-        raise NotImplementedError(
-            "not ported yet: the diffusion infill engine (ROADMAP A11: "
-            "the SVD-class DiffusionInfillEngine)")
+        from metric_depth_video_toolbox_tpu_torch.pipeline import \
+            infill_diffusion
+        return infill_diffusion.infill_sbs_video_diffusion(
+            sbs_video, infill_mask_video, output=output,
+            color_video=color_video, max_frames=max_frames, device=device)
     if engine != "basic":
         raise ValueError(f"unknown infill engine {engine!r}")
     device = resolve_device(device)

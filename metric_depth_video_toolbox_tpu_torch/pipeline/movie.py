@@ -9,15 +9,16 @@ Seven steps with the JAX package's file contract and resume by existence
   3. generate subject masks
   4. find convergence depths
   5. render SBS stereo per scene (movie configuration, infill mask on)
-  6. fill the disocclusions (basic normal-march infill)
+  6. fill the disocclusions (basic normal-march infill, or the diffusion
+     engine: the JAX package's default ``DiffusionInfillEngine``,
+     ``DIFFUSION_TINY`` at 256 x 256)
   7. concatenate into ``<movie>_SBS.mkv`` and tag StereoMode
 
 Per-scene ``Engine``, ``Infill`` and ``Convergence`` overrides come from
 extra columns of the scene CSV. Depth engines: ``vda`` and ``da3``; the
 JAX package's other engines raise naming ROADMAP A13, and an unknown name
 falls back with the JAX package's warning. ``parallel`` > 1 (scene
-renders on worker threads) raises naming A16, the diffusion infill engine
-naming A11.
+renders on worker threads) raises naming A16.
 
 Every device step runs on ``device`` (CUDA unless the caller asks for the
 CPU). ``STEP_SECONDS`` holds the wall time of each step of the last run.
@@ -189,19 +190,12 @@ def step5_render_sbs(scenes, xfov=None, max_depth=100.0, infill_mask=True,
             batch_size=batch_size, device=device, **stereo_kwargs)
 
 
-def _check_infill_engine(infill_engine):
-    if infill_engine == "diffusion":
-        raise NotImplementedError("not ported yet: --infill_engine "
-                                  "diffusion (ROADMAP A11: the SVD-class "
-                                  "DiffusionInfillEngine)")
-
-
 def step6_infill(scenes, infill_engine="basic", device=None):
     """Per-scene infill: 'none' skips, 'basic' is the normal-march
-    infill."""
+    infill, 'diffusion' the default SVD-class engine (a fresh one per
+    scene, as in the JAX package)."""
     if infill_engine == "none":
         return
-    _check_infill_engine(infill_engine)
     from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video
     for scene in scenes:
         if (not scene["infill"] or os.path.exists(scene["infilled"])
@@ -336,7 +330,6 @@ def movie_to_3d(color_video, output_dir=None, engine="vda",
     """The full pipeline; returns the final movie's path (None with
     ``no_render``). Resumable: a second run redoes nothing that exists."""
     _check_parallel(parallel)
-    _check_infill_engine(infill_engine)
     STEP_SECONDS.clear()
     clock = [time.perf_counter()]
 

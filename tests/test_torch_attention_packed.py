@@ -23,6 +23,7 @@ import torch
 
 from metric_depth_video_toolbox_tpu.ops import attention_pallas as ap
 from metric_depth_video_toolbox_tpu_torch.ops import attention_packed as apk
+from port_helpers import _one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

@@ -188,10 +188,51 @@ def test_infill_sbs_video_file_to_file_matches_jax(tmp_path):
     np.testing.assert_array_equal(out["torch"][4], sbs[4])
 
 
-def test_infill_sbs_video_diffusion_engine_raises_a11(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        tiv.infill_sbs_video(str(tmp_path / "x.mkv"), str(tmp_path / "m.mkv"),
-                             engine="diffusion", device="cpu")
+def test_infill_sbs_video_diffusion_engine_runs_the_default(tmp_path,
+                                                           monkeypatch):
+    """``engine="diffusion"`` builds the JAX package's default engine
+    (DIFFUSION_TINY at 256 x 256, chunks of 25 overlapping by 6, seeded
+    weights) and writes the infilled SBS video: every frame, the holes
+    filled, the pixels outside the holes and the halo band unchanged."""
+    pytest.importorskip("cv2")
+    from metric_depth_video_toolbox_tpu_torch.io import video as tvio
+    from metric_depth_video_toolbox_tpu_torch.models import diffusion as td
+    from metric_depth_video_toolbox_tpu_torch.ops import image as tim
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as tid
+
+    rng = np.random.default_rng(7)
+    sbs = rng.integers(0, 256, (6, 24, 64, 3), np.uint8)
+    mask = np.zeros_like(sbs)
+    mask[:, 6:14, 8:20] = (200, 60, 128)
+    mask[:, 10:18, 40:50] = (40, 230, 128)
+    spath, mpath = str(tmp_path / "sbs.mkv"), str(tmp_path / "mask.mkv")
+    tvio.save_rgb_video(sbs, spath, 24)
+    tvio.save_rgb_video(mask, mpath, 24)
+    built = []
+    engine = tid.DiffusionInfillEngine
+
+    def spy(**kw):
+        built.append(engine(**kw))
+        return built[-1]
+    monkeypatch.setattr(tid, "DiffusionInfillEngine", spy)
+    out = tiv.infill_sbs_video(spath, mpath, engine="diffusion",
+                               device="cpu")
+    assert out == spath + "_infilled.mkv"
+    (eng,) = built
+    assert (eng.cfg, eng.work_hw, eng.chunk, eng.overlap,
+            eng.mono_conditioning) == (td.DIFFUSION_TINY, (256, 256), 25, 6,
+                                       False)
+    with tvio.VideoReader(out) as r:
+        got = r.read_all()
+    assert got.shape == sbs.shape
+    hole = np.any(mask != 0, axis=-1)
+    lower = tinf.mark_lower_side(torch.from_numpy(mask))
+    band = tim.dilate((lower[..., 2] == 255).float(), ksize=5) > 0
+    band = tim.dilate(band.float(), ksize=7).numpy() > 0   # the blur reach
+    keep = ~hole & ~band
+    np.testing.assert_array_equal(got[keep], sbs[keep])
+    assert (got[hole] != sbs[hole]).mean() > 0.5
 
 
 def test_render_stereo_video_basic_infill_matches_jax(tmp_path):

@@ -14,6 +14,7 @@ import torch
 
 from metric_depth_video_toolbox_tpu.ops import blockcausal_pallas as bc
 from metric_depth_video_toolbox_tpu_torch.ops import blockcausal as tbc
+from port_helpers import _one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

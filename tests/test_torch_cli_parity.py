@@ -111,11 +111,9 @@ def test_port_parser_accepts_every_reference_flag(command):
 
 # option values the port does not run yet: (command, argv, ROADMAP item)
 UNPORTED_OPTIONS = [
-    ("movie", ["--infill_engine", "diffusion"], "A11"),
     ("movie", ["--parallel", "2"], "A16"),
     ("movie", ["--quantize", "int8"], "A13"),
     ("movie", ["--depth_engine", "unidepth"], "A13"),
-    ("infill", ["--infill_engine", "stereocrafter"], "A11"),
 ]
 
 
@@ -133,3 +131,38 @@ def test_unported_options_raise(tmp_path, monkeypatch, command, argv, item):
         tmain.main(base + argv)
     for opts in UNPORTED_FLAGS.values():
         assert not set(opts) & set(argv)
+
+
+@pytest.mark.parametrize("command,argv", [
+    ("movie", ["--infill_engine", "diffusion"]),
+    ("infill", ["--infill_engine", "stereocrafter"])])
+def test_diffusion_options_reach_their_pipeline(tmp_path, monkeypatch,
+                                                command, argv):
+    """Options that raised until the SVD-class infill was ported: ``movie
+    --infill_engine diffusion`` reaches ``movie_to_3d`` with that engine,
+    ``infill --infill_engine stereocrafter`` the chunk loop with the
+    preset's engine (production scale, 768 x 1024, the halo blend on by
+    default)."""
+    from metric_depth_video_toolbox_tpu_torch.models import diffusion as td
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as tid
+    from metric_depth_video_toolbox_tpu_torch.pipeline import movie as tmovie
+
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    calls = []
+    clip = str(tmp_path / "clip.mkv")
+    if command == "movie":
+        monkeypatch.setattr(tmovie, "movie_to_3d",
+                            lambda *a, **kw: calls.append(kw))
+        tmain.main(["movie", "--color_video", clip, "--xfov", "60"] + argv)
+        assert calls[0]["infill_engine"] == "diffusion"
+        return
+    monkeypatch.setattr(tid, "infill_sbs_video_diffusion",
+                        lambda *a, **kw: calls.append(kw) or "out.mkv")
+    tmain.main(["infill", "--sbs_color_video", clip] + argv)
+    (kw,) = calls
+    eng = kw.pop("engine")
+    assert isinstance(eng, tid.DiffusionInfillEngine)
+    assert (eng.cfg, eng.work_hw) == (td.DIFFUSION_SVD, (768, 1024))
+    assert kw == {"color_video": None, "max_frames": -1,
+                  "mirror_left": True, "drift_correct": False}

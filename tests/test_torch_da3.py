@@ -1,6 +1,7 @@
 """The DA3 part of the port against the JAX package, in float32 on the
-CPU, with the same weights (``model.init`` perturbed, carried across by
-``models.from_jax``) and the same inputs made from a numpy seed.
+CPU, with the same weights (drawn like ``model.init``'s from its shapes,
+perturbed, carried across by ``models.from_jax``) and the same inputs
+made from a numpy seed.
 
 Tolerances:
 - ViT features, DA3 depth and ray map: within 1e-4 of the largest value
@@ -46,6 +47,8 @@ from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import vit as tvit
 from metric_depth_video_toolbox_tpu_torch.ops import attention_packed as apk
 from metric_depth_video_toolbox_tpu_torch.ops import solvers as tsolvers
+from port_helpers import _one_torch_thread  # noqa: F401
+from port_helpers import init_like
 
 REL = 1e-4
 HW = (28, 42)            # also the engine tests' working resolution
@@ -64,23 +67,14 @@ T_CFG = {impl: f32(tda3.DA3_TINY, attention_impl=impl)
          for impl in ("xla", "flash_packed")}
 
 
-def perturbed(params, seed):
-    rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda a: a + 0.05 * jnp.asarray(rng.standard_normal(a.shape),
-                                         a.dtype), params)
-
-
 @functools.lru_cache(maxsize=None)
 def _flax_params():
-    """One jitted ``init`` of the Flax DA3 (with the ray embedding) at HW,
-    perturbed so that biases and norms are not at their trivial values;
-    every test takes its weights from this tree (their shapes do not
-    depend on the number of views)."""
-    jm = jda3.DA3(J_CFG)
-    return perturbed(jax.jit(jm.init)(
-        jax.random.PRNGKey(0), jnp.zeros((2,) + HW + (3,)),
-        jnp.zeros((2,) + GRID + (3,))), 5)
+    """One tree for the Flax DA3 (with the ray embedding) at HW, drawn like
+    its ``init`` from the shapes and perturbed so that biases and norms are
+    not at their trivial values; every test takes its weights from this
+    tree (their shapes do not depend on the number of views)."""
+    return init_like(jda3.DA3(J_CFG), 5, jnp.zeros((2,) + HW + (3,)),
+                     jnp.zeros((2,) + GRID + (3,)))
 
 
 def flax_params(ray_embed):
@@ -472,8 +466,7 @@ def test_da3_backbone_graft():
                          **WINDOW)
     tree_sd = src.model((28, 42)).backbone.state_dict()
     jm = jvit.ViT(J_CFG.vit)
-    tree = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
-        jax.random.PRNGKey(9), jnp.zeros((1, 56, 56, 3))))["params"]
+    tree = init_like(jm, 9, jnp.zeros((1, 56, 56, 3)))["params"]
     assert tree["pos_embed"].shape == (1, 17, 64)
     outs = []
     for source in (tree, {"backbone": tree}, {"params": {"backbone": tree}}):

@@ -36,6 +36,7 @@ from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.ops import codec as tcodec
 from metric_depth_video_toolbox_tpu_torch.pipeline import depth as tdepth
 from metric_depth_video_toolbox_tpu_torch.pipeline import stereo as tst
+from port_helpers import _one_torch_thread  # noqa: F401
 
 T, H, W = 10, 48, 64
 INPUT_SIZE = 42          # working resolution 42x56: the shrinking path

@@ -786,3 +786,47 @@ def test_movie_to_3d_on_the_card_launches_the_sweep(cuda, tmp_path):
     with vio.VideoReader(out) as r:
         assert (r.frame_count, r.width) == (32, 128)
     assert mkv.get_stereo_mode(out) == mkv.STEREO_SBS_LEFT_FIRST
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graph", ["diffusion_tiny", "svd_tiny_clip"])
+def test_diffusion_infill_engine_card_matches_cpu(cuda, no_tf32, graph):
+    """``DiffusionInfillEngine.infill_chunk`` in float32 on the same weights
+    and noise on the card and on the CPU (DIFFUSION_TINY with mono
+    conditioning; SVD_TINY with a CLIP_TINY context): the sampled latents
+    within 1e-4 of their largest value, the uint8 frames within 1 LSB on at
+    most 0.5% of bytes, the pixels outside the holes unchanged."""
+    from metric_depth_video_toolbox_tpu_torch.models import clip, diffusion
+    from metric_depth_video_toolbox_tpu_torch.models import svd
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+
+    kw = dict(work_hw=(64, 96), chunk=5)
+    if graph == "svd_tiny_clip":
+        tower = diffusion.init_weights(clip.CLIPVisionTower(clip.CLIP_TINY),
+                                       torch.Generator().manual_seed(2))
+        kw.update(cfg=svd.SVD_TINY, vae_cfg=svd.SVD_VAE_TINY,
+                  clip_cfg=clip.CLIP_TINY, clip_params=tower.state_dict())
+    else:
+        kw.update(mono_conditioning=True)
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (5, 90, 160, 3), np.uint8)
+    hole = np.zeros((5, 90, 160), bool)
+    hole[:, 20:60, 30:90] = True
+    mono = rng.integers(0, 256, (5, 90, 160, 3), np.uint8)
+    cpu = idf.DiffusionInfillEngine(device="cpu", **kw)
+    cpu._ensure()
+    card = idf.DiffusionInfillEngine(device=cuda, params=cpu.model
+                                     .state_dict(), **kw)
+    with torch.no_grad():
+        lat = cpu.model.encode(torch.zeros((5, 64, 96, 3))).shape
+    noise = torch.randn(lat, generator=torch.Generator().manual_seed(3))
+    z, out = {}, {}
+    for name, eng in (("cpu", cpu), ("card", card)):
+        eng.on_latents = lambda v, name=name: z.setdefault(name, v.cpu())
+        out[name] = eng.infill_chunk(frames, hole, mono, noise=noise)
+    err = (z["card"] - z["cpu"]).abs().max() / z["cpu"].abs().max()
+    assert err.item() <= 1e-4
+    d = np.abs(out["card"].astype(int) - out["cpu"].astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.005
+    np.testing.assert_array_equal(out["card"][~hole], frames[~hole])

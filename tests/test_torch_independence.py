@@ -81,6 +81,16 @@ eng = infill_diffusion.CausalInfillEngine(cfg=wan.WAN_TINY, work_hw=(32, 64),
 res = infill_diffusion.infill_sbs_frames(sbs, hole, eng, mono=sbs[:, :, :64],
                                          mirror_left=False, drift_correct=True)
 assert res.shape == sbs.shape and (res[~hole] == sbs[~hole]).all()
+from metric_depth_video_toolbox_tpu_torch.models import clip, svd
+for cfg_, kw in ((None, {}), (svd.SVD_TINY, dict(
+        vae_cfg=svd.SVD_VAE_TINY, clip_params=clip.CLIPVisionTower(
+            clip.CLIP_TINY).state_dict(), clip_cfg=clip.CLIP_TINY))):
+    deng = infill_diffusion.DiffusionInfillEngine(
+        cfg=cfg_, work_hw=(32, 48), chunk=5, mono_conditioning=True,
+        device="cpu", **kw)
+    got = deng.infill_chunk(sbs[:, :, 64:], hole[:, :, 64:], sbs[:, :, :64])
+    assert got.shape == (5, 32, 64, 3)
+    assert (got[~hole[:, :, 64:]] == sbs[:, :, 64:][~hole[:, :, 64:]]).all()
 import dataclasses
 fused = stereo.stereo_step(dataclasses.replace(cfg, fused_anchor_sweep=True),
                            rgb, col, k, torch.eye(4)[None],

@@ -33,6 +33,8 @@ from metric_depth_video_toolbox_tpu_torch.ops import image as tim
 from metric_depth_video_toolbox_tpu_torch.ops import infill as tinfill
 from metric_depth_video_toolbox_tpu_torch.pipeline import \
     infill_diffusion as tid
+from port_helpers import _one_torch_thread  # noqa: F401
+from port_helpers import perturbed_like
 
 WORK = (32, 64)
 
@@ -127,16 +129,25 @@ def test_resize_mask_matches_jax_nearest():
 
 @pytest.fixture(scope="module")
 def engines():
-    """A JAX CausalInfillEngine at WAN_TINY with perturbed parameters, and
-    the port's engine on the CPU with the same parameters."""
+    """A JAX CausalInfillEngine at WAN_TINY with perturbed parameters (drawn
+    like its ``_ensure``'s ``init`` trees, from their shapes), and the
+    port's engine on the CPU with the same parameters."""
     je = jid.CausalInfillEngine(cfg=jw.WAN_TINY, work_hw=WORK, chunk=9)
-    je._ensure()
-    params = {}
-    for i, (name, tree) in enumerate(sorted(je._params.items())):
-        rng = np.random.default_rng(10 + i)
-        params[name] = jax.tree_util.tree_map(
-            lambda a: a + 0.05 * jnp.asarray(rng.standard_normal(a.shape),
-                                             a.dtype), tree)
+    key = jax.random.PRNGKey(0)
+    f = jnp.zeros((1, je._t_pad(5)) + WORK + (3,))
+    enc = jax.eval_shape(je.enc.init, key, f)
+    z = jax.eval_shape(je.enc.apply, enc, f)
+    tl, lh, lw = z.shape[1:4]
+    shapes = {
+        "enc": enc,
+        "dec": jax.eval_shape(je.dec.init, key,
+                              jnp.zeros(z.shape, jnp.float32)),
+        "dit": jax.eval_shape(
+            je.model.init, key, jnp.zeros((1, tl, lh, lw, je.cfg.z_ch)),
+            jnp.zeros((1, tl)), jnp.zeros((1, tl, lh, lw, je.cfg.cond_ch)),
+            None)}
+    params = {name: perturbed_like(tree, 10 + i)
+              for i, (name, tree) in enumerate(sorted(shapes.items()))}
     je._params = params
     te = tid.CausalInfillEngine(
         cfg=tw.WAN_TINY, work_hw=WORK, chunk=9, device="cpu",
@@ -269,8 +280,9 @@ def test_make_engine_presets():
     assert (eng.chunk, eng.overlap, eng.work_hw) == (225, 6, (480, 832))
     assert tid.ENGINE_PRESETS == jid.ENGINE_PRESETS
     for preset in ("stereocrafter", "m2svid"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tid.make_engine(preset, device="cpu")
+        eng, drv = tid.make_engine(preset, device="cpu")
+        _, jdrv = jid.make_engine(preset)
+        assert isinstance(eng, tid.DiffusionInfillEngine) and drv == jdrv
 
 
 def _options(parser):
@@ -284,21 +296,97 @@ def test_parser_matches_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--infill_engine", "diffusion"], "A11"),
-    (["--infill_engine", "m2svid"], "A11"),
-    (["--infill_engine", "external"], "A11"),
-    (["--infill_engine", "inspatio_world", "--model_scale", "svd"], "A11"),
     (["--infill_engine", "inspatio_world", "--checkpoint", "x.npz"],
      "converted checkpoint"),
-    (["--infill_engine", "inspatio_world", "--apply_edge_blending"],
-     "A11")])
+    (["--infill_engine", "diffusion", "--checkpoint", "x.msgpack"], "A5"),
+    (["--infill_engine", "stereocrafter", "--model_scale", "svd",
+      "--clip_checkpoint", "clip.msgpack"], "A5")])
 def test_cli_raises_for_unported(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tmain.main(["infill", "--sbs_color_video",
                     str(tmp_path / "none.mkv")] + argv)
 
 
+def _engine_key(eng):
+    """What the CLI chose, comparable across the two packages."""
+    import dataclasses
+    return (type(eng).__name__, eng.chunk, eng.overlap, tuple(eng.work_hw),
+            eng.mono_conditioning, type(eng.cfg).__name__,
+            dataclasses.asdict(eng.cfg))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--infill_engine", "diffusion"],
+    ["--infill_engine", "m2svid"],
+    ["--infill_engine", "external", "--external_command", "engine.py",
+     "quality=high"],
+    ["--infill_engine", "inspatio_world", "--model_scale", "svd"],
+    ["--infill_engine", "inspatio_world", "--apply_edge_blending"],
+    ["--infill_engine", "stereocrafter", "--model_scale", "svd",
+     "--num_inference_steps", "3"],
+    ["--infill_engine", "m2svid", "--model_scale", "tiny",
+     "--apply_edge_blending", "--color_video", "mono.mkv"]],
+    ids=["diffusion", "m2svid", "external", "inspatio_svd", "inspatio_edge",
+         "svd_steps", "m2svid_tiny_edge"])
+def test_cli_engine_selection(tmp_path, monkeypatch, argv):
+    """Both packages' ``infill`` CLIs on the same argv reach the same
+    entry point with the same engine (preset, model scale, steps) and
+    chunk-loop keyword arguments (the halo blend, the mirror, drift
+    correction)."""
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    from metric_depth_video_toolbox_tpu.cli import main as jmain
+
+    seen = {}
+    for name, mod in (("jax", jid), ("torch", tid)):
+        calls = seen[name] = []
+
+        def diffusion(v, mask, engine=None, calls=calls, **kw):
+            calls.append(("diffusion", v, mask, _engine_key(engine), kw))
+            return v + "_infilled.mkv"
+
+        def external(v, mask, command, calls=calls, **kw):
+            calls.append(("external", v, mask, list(command), kw))
+            return v + "_infilled.mkv"
+        monkeypatch.setattr(mod, "infill_sbs_video_diffusion", diffusion)
+        monkeypatch.setattr(mod, "infill_sbs_video_external", external)
+    clip = str(tmp_path / "clip.mkv")
+    jmain.main(["infill", "--sbs_color_video", clip] + argv)
+    tmain.main(["infill", "--sbs_color_video", clip] + argv)
+    assert seen["torch"] == seen["jax"] and len(seen["torch"]) == 1
+    kind, _, mask, key, kw = seen["torch"][0]
+    assert mask == clip + "_infillmask.mkv"
+    if "--apply_edge_blending" in argv:
+        assert kw["apply_edge_blending"] is True
+    if kind == "diffusion" and "--num_inference_steps" in argv:
+        assert key[-1]["num_steps"] == 3
+
+
+def test_cli_batch_keeps_going_after_a_failed_clip(tmp_path, monkeypatch,
+                                                   capsys):
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    clips = [str(tmp_path / f"c{i}.mkv") for i in range(3)]
+    listing = tmp_path / "clips.txt"
+    listing.write_text("\n".join(clips) + "\n")
+
+    def external(v, mask, command, **kw):
+        if v == clips[1]:
+            raise RuntimeError("engine refused")
+        return v + "_infilled.mkv"
+    monkeypatch.setattr(tid, "infill_sbs_video_external", external)
+    outs = tcli.run(tcli.build_parser().parse_args(
+        ["--sbs_color_video", str(listing), "--infill_engine", "external",
+         "--external_command", "x"]))
+    assert outs == [clips[0] + "_infilled.mkv", clips[2] + "_infilled.mkv"]
+    assert f"infill FAILED for {clips[1]}: engine refused" in \
+        capsys.readouterr().out
+    with pytest.raises(SystemExit, match="--external_command required"):
+        tmain.main(["infill", "--sbs_color_video", clips[0],
+                    "--infill_engine", "external"])
+
+
 def test_cli_inspatio_engine_scales():
+    eng, _ = tcli.make_inspatio_engine("svd", device="cpu")
+    assert eng.cfg == tw.WAN_1_3B
     eng, _ = tcli.make_inspatio_engine("tiny", 3, device="cpu")
     assert eng.cfg.dim == tw.WAN_TINY.dim
     np.testing.assert_allclose(eng.cfg.denoise_steps, (1.0, 2 / 3, 1 / 3))

@@ -1,6 +1,7 @@
 """The port's models against the JAX package's Flax models in float32, with
-parameters from ``model.init`` (perturbed so that biases and norms are not
-at their trivial initial values) carried across by ``models.from_jax``.
+parameters drawn like ``model.init``'s from its shapes (perturbed so that
+biases and norms are not at their trivial initial values) carried across
+by ``models.from_jax``.
 
 Tolerance: outputs within 1e-4 of the largest output magnitude
 (measured: ~2e-6). ``_resize`` is held against ``jax.image.resize`` at the
@@ -26,6 +27,8 @@ from metric_depth_video_toolbox_tpu_torch.models import dpt as tdpt
 from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import video_depth as tvd
 from metric_depth_video_toolbox_tpu_torch.models import vit as tvit
+from port_helpers import _one_torch_thread  # noqa: F401
+from port_helpers import init_like
 
 REL = 1e-4
 HW = (42, 56)
@@ -40,11 +43,8 @@ J_DPT, T_DPT = f32(jdpt.DPT_TINY), f32(tdpt.DPT_TINY)
 
 
 def init(model, seed, *inputs):
-    params = jax.jit(model.init)(jax.random.PRNGKey(seed), *inputs)
-    rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda a: a + 0.05 * jnp.asarray(rng.standard_normal(a.shape),
-                                         a.dtype), params)
+    """Flax-init-like parameters, perturbed (``port_helpers``)."""
+    return init_like(model, seed, *inputs)
 
 
 def assert_close(got, want):

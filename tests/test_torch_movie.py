@@ -435,8 +435,84 @@ def test_movie_cli_parser_matches_jax():
         sorted(map(key, tcli.build_parser()._actions), key=str)
 
 
+def _scene_list(mod, scene_mod, out_dir):
+    csv = os.path.join(out_dir, "clip-Scenes.csv")
+    return mod.plan_scene_files(scene_mod.split_scenes(
+        scene_mod.read_scene_csv(csv)), out_dir)
+
+
+def test_movie_step6_diffusion_matches_jax(movie_runs, tmp_path,
+                                           monkeypatch):
+    """The movie's ``--infill_engine diffusion`` (step 6) on copies of the
+    port's scene directory, both packages: each scene gets the JAX
+    package's default engine, ``DiffusionInfillEngine(chunk=25,
+    overlap=6)`` (DIFFUSION_TINY at 256 x 256, not the production model),
+    here on one weight tree and the JAX engine's noise. Each infilled scene
+    within the budget of test_torch_stereo.py."""
+    import shutil
+
+    from metric_depth_video_toolbox_tpu.models import diffusion as jd
+    from metric_depth_video_toolbox_tpu.pipeline import \
+        infill_diffusion as jid
+    from metric_depth_video_toolbox_tpu_torch.models import diffusion as td
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as tid
+    from test_torch_stereo import assert_u8_budget
+
+    src = _out_dir(movie_runs, "torch")
+    dirs = {}
+    for name in ("jax", "torch"):
+        dirs[name] = str(tmp_path / name)
+        shutil.copytree(src, dirs[name])
+        for f in os.listdir(dirs[name]):
+            if f.endswith("_infilled.mkv"):
+                os.remove(os.path.join(dirs[name], f))
+    f = jnp.zeros((1, 16, 16, 3))
+    tree = _flax_like(jax.eval_shape(jd.VideoInpainter(jd.DIFFUSION_TINY).init,
+                                     jax.random.PRNGKey(0), f, f[..., 0]), 3)
+    jeng = jid.DiffusionInfillEngine
+    monkeypatch.setattr(jid, "DiffusionInfillEngine", lambda **kw: jeng(
+        params=tree, data_parallel=False, **kw))
+    built = []
+
+    class PortEngine(tid.DiffusionInfillEngine):
+        """The port's default engine on the tree, fed the noise the JAX
+        engine draws: a PRNGKey(0) split before every chunk."""
+
+        def __init__(self, **kw):
+            super().__init__(params=tree, **kw)
+            built.append((kw, self))
+            self.key = jax.random.PRNGKey(0)
+
+        def infill_chunk(self, frames_u8, hole_mask, mono_u8=None,
+                         noise=None):
+            self.key, sub = jax.random.split(self.key)
+            lat = (frames_u8.shape[0],) + tuple(
+                s // 8 for s in self.work_hw) + (4,)
+            noise = np.array(jax.random.normal(sub, lat, jnp.float32))
+            return super().infill_chunk(frames_u8, hole_mask, mono_u8,
+                                        torch.from_numpy(noise))
+    monkeypatch.setattr(tid, "DiffusionInfillEngine", PortEngine)
+    jmovie.step6_infill(_scene_list(jmovie, jscenes, dirs["jax"]),
+                        infill_engine="diffusion")
+    scenes = _scene_list(tmovie, tscenes, dirs["torch"])
+    tmovie.step6_infill(scenes, infill_engine="diffusion", device="cpu")
+    assert [kw for kw, _ in built] == [
+        {"chunk": 25, "overlap": 6, "device": "cpu"}] * 2
+    for _, eng in built:
+        assert (eng.cfg, eng.work_hw, eng.mono_conditioning) == (
+            td.DIFFUSION_TINY, (256, 256), False)
+    for scene in scenes:
+        name = os.path.basename(scene["infilled"])
+        got = _read(scene["infilled"])
+        assert_u8_budget(got, _read(os.path.join(dirs["jax"], name)))
+        sbs = _read(scene["sbs"])
+        hole = np.any(_read(scene["sbs_infill"]) != 0, axis=-1)
+        assert got.shape == sbs.shape == (SCENE, H, 2 * W, 3)
+        assert (got[hole] != sbs[hole]).mean() > 0.5
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    ({"infill_engine": "diffusion"}, "A11"),
     ({"parallel": 2}, "A16"),
     ({"engine": "unidepth"}, "A13"),
     ({"engine": "depthcrafter"}, "A13"),

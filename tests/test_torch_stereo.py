@@ -26,6 +26,7 @@ from metric_depth_video_toolbox_tpu.ops import geometry as jgeo
 from metric_depth_video_toolbox_tpu.pipeline import stereo as jst
 from metric_depth_video_toolbox_tpu_torch.cli import stereo_rerender as tcli
 from metric_depth_video_toolbox_tpu_torch.pipeline import stereo as tst
+from port_helpers import _one_torch_thread  # noqa: F401
 
 LSB_SHARE = 0.005
 

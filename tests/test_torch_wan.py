@@ -1,7 +1,7 @@
 """The port's Wan models (``models/wan.py``) against the JAX package's Flax
-models at WAN_TINY in float32, with parameters from ``model.init``
-(perturbed so biases and norms leave their trivial values) carried across
-by ``models.from_jax``.
+models at WAN_TINY in float32, with parameters drawn like ``model.init``'s
+from its shapes (perturbed so biases and norms leave their trivial values)
+carried across by ``models.from_jax``.
 
 Tolerance: 1e-4 of the largest output magnitude for the VAE, the DiT and
 the sampler (measured ~1e-6: sums in other orders); the RoPE tables 1e-6
@@ -21,17 +21,16 @@ import torch
 from metric_depth_video_toolbox_tpu.models import wan as jw
 from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import wan as tw
+from port_helpers import _one_torch_thread  # noqa: F401
+from port_helpers import init_like
 
 REL = 1e-4
 JCFG, TCFG = jw.WAN_TINY, tw.WAN_TINY
 
 
 def init(model, seed, *inputs):
-    params = jax.jit(model.init)(jax.random.PRNGKey(seed), *inputs)
-    rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda a: a + 0.05 * jnp.asarray(rng.standard_normal(a.shape),
-                                         a.dtype), params)
+    """Flax-init-like parameters, perturbed (``port_helpers``)."""
+    return init_like(model, seed, *inputs)
 
 
 def assert_close(got, want, rel=REL):

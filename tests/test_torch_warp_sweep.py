@@ -26,6 +26,7 @@ from metric_depth_video_toolbox_tpu.ops import warp_pallas as wp
 from metric_depth_video_toolbox_tpu_torch.ops import geometry as tgeo
 from metric_depth_video_toolbox_tpu_torch.ops import rasterize as tras
 from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
+from port_helpers import _one_torch_thread  # noqa: F401
 
 
 def T(a):
