@@ -87,6 +87,28 @@ of which fails the run on error:
                 device memory, one chunk's device busy share and top
                 device operations; counts zeroed before each, read after
                 (no hand-written kernel on this path).
+  7c. checkpoints converted checkpoints read from files: upstream-layout
+                state dicts drawn with a seeded torch.Generator, written
+                with torch.save, converted by convert_torch_file, written by
+                save_checkpoint (Flax's msgpack), then through the commands:
+                (a) VDA-S at the phase-3 widths and working grid, ``depth
+                --checkpoint`` on the phase-3 clip, its depth video bit-equal
+                to the same tree's engine in memory (the ignored resize
+                leaves printed), then ``stereo`` on 16 frames (2 disparity-
+                sweep launches); (b) a DINOv2 ViT-L on the upstream 518 grid
+                through ``da3 --backbone_checkpoint`` and grafted into DA3_L
+                on the flash_packed route (48 packed-attention launches,
+                every grafted weight equal to the file's); (c) ``infill
+                --infill_engine inspatio_world --checkpoint`` with a {dit,
+                enc, dec} tree at WAN_1_3B (WAN_TINY, said so, when the
+                script has run past CKPT_WAN_CUTOFF_S) on 16 SBS frames,
+                the preset's 225-frame chunk cut to 16 (block-causal
+                launches); (d) every file read back and held
+                bit for bit against what was written, on the card, and a
+                file with float32 and bfloat16 leaves over 2^30 bytes in
+                Flax's chunked layout. File sizes and the seconds of each
+                step printed, and (a) and (b)'s frames/s beside phases 3
+                and 6.
   8. reference  the depth engine, the stereo step, a narrow Wan infill
                 chunk, the SVD-class infill chunk (DIFFUSION_TINY with
                 mono, SVD_TINY with CLIP_TINY), a narrow DA3
@@ -95,8 +117,8 @@ of which fails the run on error:
                 must agree.
   9. files      depth -> stereo -> infill (--model_scale tiny), da3
                 (--model_size vitt) and stereo --fused_anchor_sweep file to
-                file through cli/main.py, where OpenCV is installed (else
-                one line says it was skipped).
+                file through cli/main.py (OpenCV needed: the phase fails
+                without it, as the movie phase does).
  10. profile    the stereo step, the depth engine, one eye's infill chunk,
                 the DA3 clip, one 16-frame 1080p batch of U²-Net SEG_FULL
                 masks and one 4-frame 3840x1080 batch of the basic infill
@@ -1976,10 +1998,9 @@ def phase_profile(metric, frames, infill, da3, sbs, sbs_mask, dev):
 def phase_files(dev):
     try:
         import cv2
-    except ImportError:
-        log("[files] phase not run: OpenCV (cv2) is not installed here, "
-            "and the port's file I/O needs it")
-        return
+    except ImportError as e:
+        raise RuntimeError("files: OpenCV (cv2) is not installed; the port's "
+                           "file I/O needs it") from e
     import torch
 
     from metric_depth_video_toolbox_tpu_torch.cli import main as cli
@@ -2045,7 +2066,520 @@ def phase_files(dev):
             f"--fused_anchor_sweep on its depth and xfovs: {dt_fused:.3f} s")
 
 
+# ------------------------------------------------- phase: checkpoints ----
+
+CKPT_SEED = 9
+# the checkpoints phase's own cut: an infill of 16 SBS frames (one chunk
+# per eye), a stereo run of one batch, a DA3 command on one window
+CKPT_INFILL_FRAMES, CKPT_STEREO_FRAMES, CKPT_DA3_CLI_FRAMES = 16, 16, 16
+# WAN_1_3B's round trip is cut to WAN_TINY when the script has run longer
+# than this before the phase (the script aims at 900 s of its 1200)
+CKPT_WAN_CUTOFF_S = 600.0
+CHUNK_TEST_ELEMENTS = 2 ** 28 + 4097   # one float32 leaf over 2^30 bytes
+
+
+def dinov2_shapes(prefix, d, depth, n_tokens, patch=14):
+    """{name: shape} of an upstream DINOv2 state dict."""
+    s = {f"{prefix}patch_embed.proj.weight": (d, 3, patch, patch),
+         f"{prefix}patch_embed.proj.bias": (d,),
+         f"{prefix}cls_token": (1, 1, d),
+         f"{prefix}pos_embed": (1, n_tokens + 1, d),
+         f"{prefix}norm.weight": (d,), f"{prefix}norm.bias": (d,)}
+    for i in range(depth):
+        b = f"{prefix}blocks.{i}."
+        s.update({b + "norm1.weight": (d,), b + "norm1.bias": (d,),
+                  b + "attn.qkv.weight": (3 * d, d),
+                  b + "attn.qkv.bias": (3 * d,),
+                  b + "attn.proj.weight": (d, d), b + "attn.proj.bias": (d,),
+                  b + "ls1.gamma": (d,), b + "norm2.weight": (d,),
+                  b + "norm2.bias": (d,), b + "mlp.fc1.weight": (4 * d, d),
+                  b + "mlp.fc1.bias": (4 * d,),
+                  b + "mlp.fc2.weight": (d, 4 * d), b + "mlp.fc2.bias": (d,),
+                  b + "ls2.gamma": (d,)})
+    return s
+
+
+def vda_head_shapes(prefix, d, chans, feat):
+    """{name: shape} of an upstream Video-Depth-Anything head: the DPT
+    head's layout (projects, resize_layers, scratch) and four AnimateDiff
+    motion modules."""
+    s = {}
+    for i, ch in enumerate(chans):
+        s[f"{prefix}projects.{i}.weight"] = (ch, d, 1, 1)
+        s[f"{prefix}projects.{i}.bias"] = (ch,)
+        s[f"{prefix}scratch.layer{i + 1}_rn.weight"] = (feat, ch, 3, 3)
+    for i, k in ((0, 4), (1, 2), (3, 3)):
+        s[f"{prefix}resize_layers.{i}.weight"] = (chans[i], chans[i], k, k)
+        s[f"{prefix}resize_layers.{i}.bias"] = (chans[i],)
+    for rn in range(1, 5):
+        r = f"{prefix}scratch.refinenet{rn}."
+        for unit in (1, 2):
+            for cv in (1, 2):
+                s[f"{r}resConfUnit{unit}.conv{cv}.weight"] = (feat, feat, 3, 3)
+                s[f"{r}resConfUnit{unit}.conv{cv}.bias"] = (feat,)
+        s[r + "out_conv.weight"] = (feat, feat, 1, 1)
+        s[r + "out_conv.bias"] = (feat,)
+    sc = f"{prefix}scratch.output_conv"
+    s.update({sc + "1.weight": (feat // 2, feat, 3, 3), sc + "1.bias":
+              (feat // 2,), sc + "2.0.weight": (32, feat // 2, 3, 3),
+              sc + "2.0.bias": (32,), sc + "2.2.weight": (1, 32, 1, 1),
+              sc + "2.2.bias": (1,)})
+    for i, dim in enumerate((chans[2], chans[3], feat, feat)):
+        t = f"{prefix}motion_modules.{i}.temporal_transformer."
+        s.update({t + "norm.weight": (dim,), t + "norm.bias": (dim,),
+                  t + "proj_in.weight": (dim, dim), t + "proj_in.bias": (dim,),
+                  t + "proj_out.weight": (dim, dim),
+                  t + "proj_out.bias": (dim,)})
+        b = t + "transformer_blocks.0."
+        for k in range(2):
+            a = f"{b}attention_blocks.{k}."
+            s.update({a + "to_q.weight": (dim, dim),
+                      a + "to_k.weight": (dim, dim),
+                      a + "to_v.weight": (dim, dim),
+                      a + "to_out.0.weight": (dim, dim),
+                      a + "to_out.0.bias": (dim,),
+                      f"{b}norms.{k}.weight": (dim,),
+                      f"{b}norms.{k}.bias": (dim,)})
+        s.update({b + "ff_norm.weight": (dim,), b + "ff_norm.bias": (dim,),
+                  b + "ff.net.0.proj.weight": (8 * dim, dim),
+                  b + "ff.net.0.proj.bias": (8 * dim,),
+                  b + "ff.net.2.weight": (dim, 4 * dim),
+                  b + "ff.net.2.bias": (dim,)})
+    return s
+
+
+def wan_shapes(cfg):
+    """{name: shape} of an upstream Wan2.1-class DiT state dict (the
+    layout of InSpatio-World-1.3B.safetensors)."""
+    d, p = cfg.dim, cfg.patch_hw
+    s = {"patch_embedding.weight": (d, cfg.z_ch + cfg.cond_ch, 1, p, p),
+         "patch_embedding.bias": (d,),
+         "text_embedding.0.weight": (d, cfg.text_dim),
+         "text_embedding.0.bias": (d,), "text_embedding.2.weight": (d, d),
+         "text_embedding.2.bias": (d,),
+         "time_embedding.0.weight": (d, cfg.freq_dim),
+         "time_embedding.0.bias": (d,), "time_embedding.2.weight": (d, d),
+         "time_embedding.2.bias": (d,),
+         "time_projection.1.weight": (6 * d, d),
+         "time_projection.1.bias": (6 * d,),
+         "head.head.weight": (p * p * cfg.z_ch, d),
+         "head.head.bias": (p * p * cfg.z_ch,), "head.modulation": (1, 2, d)}
+    for i in range(cfg.layers):
+        b = f"blocks.{i}."
+        for att in ("self_attn", "cross_attn"):
+            for m in ("q", "k", "v", "o"):
+                s[f"{b}{att}.{m}.weight"] = (d, d)
+                s[f"{b}{att}.{m}.bias"] = (d,)
+            # RMSNorm over each head's channels, as the models hold it
+            s[f"{b}{att}.norm_q.weight"] = (d // cfg.heads,)
+            s[f"{b}{att}.norm_k.weight"] = (d // cfg.heads,)
+        s.update({b + "norm3.weight": (d,), b + "norm3.bias": (d,),
+                  b + "ffn.0.weight": (cfg.ffn_dim, d),
+                  b + "ffn.0.bias": (cfg.ffn_dim,),
+                  b + "ffn.2.weight": (d, cfg.ffn_dim), b + "ffn.2.bias": (d,),
+                  b + "modulation": (1, 6, d)})
+    return s
+
+
+def upstream_state_dict(shapes, gen, dev):
+    """Seeded values for an upstream state dict, drawn on the card and kept
+    on the host (float32): LeCun-normal matrices and kernels, norm weights
+    near 1, layer scales 1, small biases, N(0, 0.02) embeddings and
+    modulations."""
+    import math
+
+    import torch
+
+    sd = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        x = torch.randn(shape, generator=gen, device=dev)
+        if leaf == "weight" and len(shape) >= 2:
+            x /= math.sqrt(math.prod(shape[1:]))
+        elif leaf == "weight":
+            x = 1.0 + 0.01 * x
+        elif leaf == "gamma":
+            x = torch.ones_like(x)
+        elif leaf == "bias":
+            x *= 0.01
+        else:
+            x *= 0.02
+        sd[name] = x.cpu()
+    return sd
+
+
+def tree_leaves(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from tree_leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def same_bits_on_card(written, read, dev):
+    """Every leaf of ``read`` equal to ``written``'s, bit for bit, compared
+    on the card (bfloat16 leaves as int16). -> (leaves, bytes)"""
+    import numpy as np
+    import torch
+
+    got = dict(tree_leaves(read))
+    want = dict(tree_leaves(written))
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"checkpoints: read-back paths differ: "
+                           f"{sorted(set(got) ^ set(want))[:6]}")
+    nbytes = 0
+    for path, w in want.items():
+        g = got[path]
+        ts = []
+        for x in (w, g):
+            if not torch.is_tensor(x):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            ts.append(x.contiguous())
+        if ts[0].dtype != ts[1].dtype or ts[0].shape != ts[1].shape:
+            raise RuntimeError(f"checkpoints: {'/'.join(path)}: "
+                               f"{ts[0].dtype}{tuple(ts[0].shape)} written, "
+                               f"{ts[1].dtype}{tuple(ts[1].shape)} read")
+        raw = [t.view(torch.int16 if t.element_size() == 2 else
+                      torch.int32 if t.element_size() == 4 else
+                      torch.uint8).to(dev) for t in ts]
+        if not torch.equal(raw[0], raw[1]):
+            raise RuntimeError(f"checkpoints: {'/'.join(path)} read back "
+                               f"differs from what was written")
+        nbytes += ts[0].numel() * ts[0].element_size()
+    return len(want), nbytes
+
+
+def phase_checkpoints(frames, sbs, sbs_mask, da3_frames, depth_fps, da3_fps,
+                      dev, zero_counts, counts, card, t_script):
+    """Converted checkpoints on the main paths, from files: upstream-layout
+    state dicts drawn with a seeded ``torch.Generator`` and written with
+    ``torch.save``, converted by ``convert_torch_file``, written by
+    ``save_checkpoint`` (Flax's msgpack), read through the commands:
+    (a) VDA-S at the phase-3 engine's widths and grid, ``mdvt-torch depth
+    --checkpoint`` on the phase-3 clip, bit-equal to the same tree in
+    memory, then ``mdvt-torch stereo`` (B1); (b) a DINOv2 ViT-L on the
+    upstream 518 grid grafted into DA3_L, through ``mdvt-torch da3
+    --backbone_checkpoint`` and, on the ``flash_packed`` route, in memory
+    on the phase-6 clip (B4); (c) ``mdvt-torch infill --infill_engine
+    inspatio_world --checkpoint`` with a ``{"dit", "enc", "dec"}`` tree at
+    WAN_1_3B (B3); (d) every file read back and held bit for bit against
+    what was written, on the card, and a file with leaves over 2^30 bytes
+    (float32 and bfloat16) in Flax's chunked layout. -> numbers"""
+    try:
+        import cv2  # noqa: F401 - the commands read and write video files
+    except ImportError as e:
+        raise RuntimeError("checkpoints: OpenCV (cv2) is not installed; the "
+                           "commands read and write video files") from e
+    import gc
+
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.models import convert
+    from metric_depth_video_toolbox_tpu_torch.models import da3
+    from metric_depth_video_toolbox_tpu_torch.models import depth_anything
+    from metric_depth_video_toolbox_tpu_torch.models import from_jax
+    from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
+    from metric_depth_video_toolbox_tpu_torch.models import wan as wan_mod
+    from metric_depth_video_toolbox_tpu_torch.ops import codec
+    from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+
+    log(f"[checkpoints] ({card}) the script has run "
+        f"{time.perf_counter() - t_script:.1f} s before the phase")
+    gen = torch.Generator(device=dev).manual_seed(CKPT_SEED)
+    res, written = {}, {}
+    t_phase = time.perf_counter()
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    def to_file(tmp, name, sd, kind, cfg):
+        """torch.save -> convert_torch_file -> save_checkpoint; the upstream
+        file is deleted once converted. -> (path, tree, numbers)"""
+        pth = os.path.join(tmp, name + ".pth")
+        _, t_pth = timed(torch.save, sd, pth)
+        tree, t_conv = timed(convert.convert_torch_file, pth, kind, cfg)
+        os.remove(pth)
+        path = os.path.join(tmp, name + ".msgpack")
+        _, t_write = timed(convert.save_checkpoint, path, tree)
+        written[path] = tree
+        n = sum(int(np.prod(np.shape(v))) for _, v in tree_leaves(tree))
+        return path, tree, {"parameters": n, "bytes": os.path.getsize(path),
+                            "torch_save_s": t_pth, "convert_s": t_conv,
+                            "write_s": t_write}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) VDA-S: the widths and working grid of the phase-3 engine
+        eng = dstage.VDAEngine(size="vits", device=dev)
+        work = depth_anything.working_resolution(H, W, 518, 14)
+        grid = (work[0] // 14, work[1] // 14)
+        c = eng.cfg
+        sd = upstream_state_dict(
+            {**dinov2_shapes("pretrained.", c.vit.embed_dim, c.vit.depth,
+                             grid[0] * grid[1]),
+             **vda_head_shapes("head.", c.vit.embed_dim,
+                               c.dpt.out_channels, c.dpt.features)},
+            gen, dev)
+        # a positive disparity before the head's last relu, as a trained
+        # head gives
+        sd["head.scratch.output_conv2.2.bias"] += 1.0
+        path, _, r = to_file(tmp, "vda_vits", sd, "vda", c)
+        del sd
+        tree, r["read_s"] = timed(convert.load_checkpoint, path)
+        mem = dstage.VDAEngine(size="vits", params=tree, device=dev)
+        _, r["load_s"] = timed(mem.models, work)
+        r["ignored"] = mem.ignored_leaves
+        want = {"head.resize0.weight", "head.resize0.bias",
+                "head.resize1.weight", "head.resize1.bias",
+                "head.resize3.weight", "head.resize3.bias"}
+        if set(mem.ignored_leaves) != want:
+            raise RuntimeError(f"checkpoints (a): ignored leaves "
+                               f"{mem.ignored_leaves}, expected {want}")
+        clip = os.path.join(tmp, "clip.mkv")
+        vio.save_rgb_video(frames, clip, 24)
+        zero_counts()
+        _, r["depth_cli_s"] = timed(cli.main, [
+            "depth", "--color_video", clip, "--checkpoint", path])
+        _, r["stereo_cli_s"] = timed(cli.main, [
+            "stereo", "--depth_video", clip + "_depth.mkv", "--color_video",
+            clip, "--xfov", "60", "--infill_mask", "--max_frames",
+            str(CKPT_STEREO_FRAMES)])
+        r["launches"] = counts()
+        if {k: v for k, v in r["launches"].items() if v} != {
+                "disparity_sweep": 2}:
+            raise RuntimeError(f"checkpoints (a): launches {r['launches']},"
+                               f" expected disparity_sweep 2 (main + anchor "
+                               f"sweep of one batch of "
+                               f"{CKPT_STEREO_FRAMES} frames)")
+        torch.cuda.synchronize()
+        metric, r["infer_s"] = timed(mem.infer_video, frames)
+        r["fps"] = len(frames) / r["infer_s"]
+        with vio.VideoReader(clip + "_depth.mkv") as rd:
+            from_file = rd.read_all()
+        in_memory = codec.encode_depth_frame(torch.as_tensor(metric),
+                                             100.0).numpy()
+        if not np.array_equal(from_file, in_memory):
+            raise RuntimeError(
+                f"checkpoints (a): the depth video of `depth --checkpoint` "
+                f"differs from the same tree's engine in memory on "
+                f"{float((from_file != in_memory).any(-1).mean()):.5f} of "
+                f"pixels")
+        with vio.VideoReader(clip + "_depth.mkv_stereo.mkv") as rd:
+            n_sbs, w_sbs = rd.frame_count, rd.width
+        if (n_sbs, w_sbs) != (CKPT_STEREO_FRAMES, 2 * W):
+            raise RuntimeError(f"checkpoints (a): stereo wrote {n_sbs} "
+                               f"frames of width {w_sbs}")
+        log(f"[checkpoints] ({card}) (a) VDA-S {r['parameters'] / 1e6:.1f} M"
+            f" parameters at {work[0]}x{work[1]} ({grid[0]}x{grid[1]} "
+            f"patches): torch.save {r['torch_save_s']:.3f} s, convert "
+            f"{r['convert_s']:.3f} s, .msgpack {r['bytes'] / 2**20:.1f} MiB "
+            f"written in {r['write_s']:.3f} s, read in {r['read_s']:.3f} s, "
+            f"loaded in {r['load_s']:.3f} s; ignored leaves (as by Flax "
+            f"apply) {sorted(mem.ignored_leaves)}; `depth --checkpoint` "
+            f"{len(frames)} frames 1080p {r['depth_cli_s']:.3f} s file to "
+            f"file, bit-equal to the same tree in memory; in memory "
+            f"{r['infer_s']:.3f} s, {r['fps']:.3f} frames/s (phase 3, seeded "
+            f"weights: {depth_fps:.3f}); `stereo` {CKPT_STEREO_FRAMES} frames"
+            f" {r['stereo_cli_s']:.3f} s, launches {r['launches']}")
+        res["a_vda"] = {k: v for k, v in r.items() if k != "ignored"}
+        del mem, tree, metric, from_file, in_memory
+        gc.collect()
+
+        # (b) DINOv2 ViT-L on the upstream 518 grid, grafted into DA3_L
+        vit = da3.DA3_L.vit
+        up_grid = 518 // vit.patch_size
+        sd = upstream_state_dict(dinov2_shapes(
+            "", vit.embed_dim, vit.depth, up_grid * up_grid), gen, dev)
+        path, tree, r = to_file(tmp, "dinov2_vitl", sd, "dinov2", vit)
+        del sd
+        clip3 = os.path.join(tmp, "clip_da3.mkv")
+        vio.save_rgb_video(da3_frames[:CKPT_DA3_CLI_FRAMES], clip3, 24)
+        zero_counts()
+        _, r["da3_cli_s"] = timed(cli.main, [
+            "da3", "--color_video", clip3, "--backbone_checkpoint", path])
+        if any(counts().values()):
+            raise RuntimeError(f"checkpoints (b): the da3 command (SDPA) "
+                               f"launched {counts()}")
+        with vio.VideoReader(clip3 + "_depth.mkv") as rd:
+            if rd.frame_count != CKPT_DA3_CLI_FRAMES:
+                raise RuntimeError("checkpoints (b): da3 wrote "
+                                   f"{rd.frame_count} frames")
+        packed = da3.DA3Engine(cfg=da3_config("flash_packed"), device=dev,
+                               rng_seed=0, backbone=path)
+        work3 = packed._work_hw(H, W)
+        model, r["graft_s"] = timed(packed.model, work3)
+        bb = dict(tree)
+        nt = model.backbone.pos_embed.shape[1] - 1
+        gt = (work3[0] // vit.patch_size, work3[1] // vit.patch_size)
+        bb["pos_embed"] = vit_mod.interpolate_pos_embed(
+            tree["pos_embed"], (up_grid, up_grid), gt)
+        want = from_jax.flax_to_state_dict(bb)
+        got = model.backbone.state_dict()
+        bad = [k for k in want if not torch.equal(got[k],
+                                                  want[k].to(got[k].device))]
+        if bad or nt != gt[0] * gt[1]:
+            raise RuntimeError(f"checkpoints (b): grafted weights differ "
+                               f"from the file's at {bad[:6]}")
+        run_da3(packed, da3_frames, "grafted warm-up")
+        zero_counts()
+        depth, _, _, r["infer_s"], r["peak_gib"] = run_da3(
+            packed, da3_frames, "grafted")
+        r["launches"] = counts()
+        r["fps"] = len(da3_frames) / r["infer_s"]
+        want_l = {"packed_flash_attention": 2 * DA3_BLOCKS}
+        if {k: v for k, v in r["launches"].items() if v} != want_l:
+            raise RuntimeError(f"checkpoints (b): launches "
+                               f"{r['launches']}, expected {want_l}")
+        log(f"[checkpoints] ({card}) (b) DINOv2 ViT-L "
+            f"{r['parameters'] / 1e6:.1f} M parameters on the {up_grid}x"
+            f"{up_grid} grid: torch.save {r['torch_save_s']:.3f} s, convert "
+            f"{r['convert_s']:.3f} s, .msgpack {r['bytes'] / 2**20:.1f} MiB "
+            f"written in {r['write_s']:.3f} s; `da3 --backbone_checkpoint` "
+            f"{CKPT_DA3_CLI_FRAMES} frames 1080p {r['da3_cli_s']:.3f} s file "
+            f"to file; DA3_L flash_packed with the file's backbone (read and "
+            f"grafted, pos_embed {up_grid}x{up_grid} -> {gt[0]}x{gt[1]}, in "
+            f"{r['graft_s']:.3f} s; every grafted weight equal to the "
+            f"file's): {len(da3_frames)} frames 1080p {r['infer_s']:.3f} s, "
+            f"{r['fps']:.3f} frames/s (phase 6, seeded weights: "
+            f"{da3_fps:.3f}), depth {depth.min():.3f}..{depth.max():.3f} m, "
+            f"peak {r['peak_gib']:.2f} GiB, launches {r['launches']}")
+        res["b_da3"] = r
+        del packed, model, tree, bb, want, got, depth
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) {"dit", "enc", "dec"} at WAN_1_3B (WAN_TINY past the cutoff)
+        elapsed = time.perf_counter() - t_script
+        tiny = elapsed > CKPT_WAN_CUTOFF_S
+        cfg = wan_mod.WAN_TINY if tiny else wan_mod.WAN_1_3B
+        sd = upstream_state_dict(wan_shapes(cfg), gen, dev)
+        pth = os.path.join(tmp, "wan.pth")
+        _, t_pth = timed(torch.save, sd, pth)
+        del sd
+        dit, t_conv = timed(convert.convert_torch_file, pth, "wan", cfg)
+        os.remove(pth)
+        halves = {}
+        for i, (name, cls) in enumerate((("enc", wan_mod.WanVAEEncoder),
+                                         ("dec", wan_mod.WanVAEDecoder))):
+            mod = wan_mod.init_weights(cls(cfg.vae), torch.Generator(
+                ).manual_seed(CKPT_SEED + i))
+            halves[name] = {"params": from_jax.to_flax_params(mod)}
+        tree = {"dit": dit, **halves}
+        path = os.path.join(tmp, "inspatio_world.msgpack")
+        _, t_write = timed(convert.save_checkpoint, path, tree)
+        written[path] = tree
+        r = {"model": "WAN_TINY" if tiny else "WAN_1_3B",
+             "parameters": sum(int(np.prod(np.shape(v)))
+                               for _, v in tree_leaves(tree)),
+             "bytes": os.path.getsize(path), "torch_save_s": t_pth,
+             "convert_s": t_conv, "write_s": t_write}
+        src = os.path.join(tmp, "sbs.mkv")
+        mono = os.path.join(tmp, "mono.mkv")
+        n = CKPT_INFILL_FRAMES
+        vio.save_rgb_video(sbs[:n], src, 24)
+        vio.save_rgb_video(sbs_mask[:n], src + "_infillmask.mkv", 24)
+        vio.save_rgb_video(frames[:n], mono, 24)
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts()
+        argv = ["infill", "--sbs_color_video", src, "--color_video", mono,
+                "--infill_engine", "inspatio_world", "--checkpoint", path]
+        if tiny:
+            argv += ["--model_scale", "tiny"]
+        # the preset pads a shorter clip to its 225-frame chunk (88,920
+        # tokens, minutes per eye at WAN_1_3B): cut to the clip, as phase 5
+        # cuts it to 40
+        preset = idf.ENGINE_PRESETS["inspatio_world"]
+        full_chunk = preset["chunk"]
+        preset["chunk"] = n
+        try:
+            _, r["infill_cli_s"] = timed(cli.main, argv)
+        finally:
+            preset["chunk"] = full_chunk
+        r["launches"] = counts()
+        tl = wan_mod.latent_frames(wan_mod.pad_to_valid_t(n))
+        blocks = -(-tl // cfg.block_frames)
+        want_l = {"block_causal_attention": 2 * blocks
+                  * len(cfg.denoise_steps) * cfg.layers}
+        if {k: v for k, v in r["launches"].items() if v} != want_l:
+            raise RuntimeError(f"checkpoints (c): launches "
+                               f"{r['launches']}, expected {want_l} (2 eyes "
+                               f"x {blocks} causal blocks x "
+                               f"{len(cfg.denoise_steps)} steps x "
+                               f"{cfg.layers} layers)")
+        with vio.VideoReader(src + "_infilled.mkv") as rd:
+            got = rd.read_all()
+        hole = np.any(sbs_mask[:n] != 0, axis=-1)
+        if got.shape != sbs[:n].shape or not np.array_equal(
+                got[~hole], sbs[:n][~hole]):
+            raise RuntimeError("checkpoints (c): the infilled video's shape "
+                               "or its pixels outside the holes are wrong")
+        cut = (f"; cut to WAN_TINY: the script had run {elapsed:.1f} s "
+               f"before the phase (cutoff {CKPT_WAN_CUTOFF_S:.0f} s)"
+               if tiny else "")
+        log(f"[checkpoints] ({card}) (c) {r['model']} {{dit, enc, dec}} "
+            f"{r['parameters'] / 1e6:.1f} M parameters: torch.save "
+            f"{t_pth:.3f} s, convert {t_conv:.3f} s, .msgpack "
+            f"{r['bytes'] / 2**30:.3f} GiB written in {t_write:.3f} s; "
+            f"`infill --infill_engine inspatio_world --checkpoint` {n} SBS "
+            f"frames 3840x1080 (the preset's {full_chunk}-frame chunk cut to "
+            f"{n}) {r['infill_cli_s']:.3f} s file to file (the file read and "
+            f"loaded inside), launches {r['launches']}{cut}")
+        res["c_wan"] = r
+        del dit, halves, tree, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) every file read back, and leaves over 2^30 bytes (chunked)
+        g = torch.Generator(device=dev).manual_seed(CKPT_SEED + 7)
+        big = {"chunked": {
+            "f32": torch.randn(CHUNK_TEST_ELEMENTS, generator=g,
+                               device=dev).cpu().numpy(),
+            "bf16": torch.randn(2 * CHUNK_TEST_ELEMENTS + 7, generator=g,
+                                device=dev).to(torch.bfloat16).cpu()},
+            "small": torch.randn(3, 5, generator=g, device=dev).to(
+                torch.bfloat16).cpu()}
+        path = os.path.join(tmp, "chunked.msgpack")
+        _, t_write = timed(convert.save_checkpoint, path, big)
+        written[path] = big
+        with open(path, "rb") as f:
+            head = f.read(4096)
+        if b"__msgpack_chunked_array__" not in head:
+            raise RuntimeError("checkpoints (d): no chunked leaf in the file")
+        r = {"files": {}}
+        for p, tree in written.items():
+            back, t_read = timed(convert.load_checkpoint, p)
+            (leaves, nbytes), t_cmp = timed(same_bits_on_card, tree, back,
+                                            dev)
+            r["files"][os.path.basename(p)] = {
+                "bytes": os.path.getsize(p), "leaves": leaves,
+                "read_s": t_read, "compare_s": t_cmp}
+            log(f"[checkpoints] ({card}) (d) {os.path.basename(p)}: "
+                f"{os.path.getsize(p) / 2**20:.1f} MiB, {leaves} leaves "
+                f"({nbytes / 2**20:.1f} MiB of arrays) read in "
+                f"{t_read:.3f} s, equal bit for bit to what was written "
+                f"(on the card, {t_cmp:.3f} s)"
+                + (f"; written in {t_write:.3f} s, float32 and bfloat16 "
+                   f"leaves of {CHUNK_TEST_ELEMENTS * 4 / 2**30:.3f} and "
+                   f"{(2 * CHUNK_TEST_ELEMENTS + 7) * 2 / 2**30:.3f} GiB in "
+                   f"Flax's chunked layout" if p == path else ""))
+            del back
+            gc.collect()
+        res["d_round_trip"] = r
+        written.clear()
+    res["s"] = time.perf_counter() - t_phase
+    log(f"[checkpoints] ({card}) phase: {res['s']:.3f} s")
+    return res
+
+
 def main():
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2175,6 +2709,10 @@ def main():
         phase_movie(dev, zero_counts, expect_counts, smi[0])
     svd_infill = phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts,
                                   expect_counts, smi[0])
+    checkpoints = phase_checkpoints(
+        frames, sbs, sbs_mask, da3_frames, depth_fps,
+        da3_res["flash_packed"]["fps"], dev, zero_counts, counts, smi[0],
+        t_script)
 
     phase_reference(dev)
     phase_reference_movie(dev)
@@ -2289,6 +2827,7 @@ def main():
                               "fps": movie_fps, "steps_s": movie_steps,
                               "diffusion_resume": movie_diffusion}}))
     log(json.dumps({"svd_infill": svd_infill, "card": smi[0]}))
+    log(json.dumps({"checkpoints": checkpoints, "card": smi[0]}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])
     log(json.dumps({"ok": True, "device": {

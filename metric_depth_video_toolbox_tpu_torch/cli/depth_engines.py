@@ -68,7 +68,7 @@ def build_da3_parser():
     p.add_argument("--da3_resolution", default=504, type=int)
     p.add_argument("--backbone_checkpoint", type=str,
                    help="converted DINOv2 ViT checkpoint to graft into "
-                        "the DA3 backbone (not ported yet)")
+                        "the DA3 backbone")
     p.add_argument("--xfov_file", type=str,
                    help="per-frame xfov json (e.g. *_xfovs.json): "
                         "known-intrinsics conditioning")
@@ -78,11 +78,8 @@ def build_da3_parser():
 def run_da3(args, device=None):
     from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
 
-    if args.checkpoint or args.backbone_checkpoint:
-        raise NotImplementedError(
-            "not ported yet: --checkpoint / --backbone_checkpoint (ROADMAP "
-            "A5: need convert_da3 / the DINOv2 converter and a converted "
-            "checkpoint)")
+    # --checkpoint is accepted and ignored, as by the JAX package's
+    # da3_main; --backbone_checkpoint's weights are grafted
     xfovs = None
     if args.xfov_file:
         from metric_depth_video_toolbox_tpu_torch.io import sidecar
@@ -92,7 +89,8 @@ def run_da3(args, device=None):
         max_frames=args.max_frames, size=args.model_size,
         images_per_batch=args.images_per_batch,
         overlap=args.batch_overlap, num_ref_frames=args.nr_of_ref_frames,
-        resolution=args.da3_resolution, xfov=args.xfov, yfov=args.yfov,
+        resolution=args.da3_resolution,
+        backbone=args.backbone_checkpoint, xfov=args.xfov, yfov=args.yfov,
         xfovs=xfovs,
         quantize=None if args.quantize == "none" else args.quantize,
         device=device)

@@ -5,17 +5,19 @@ The same flags and defaults as the JAX package's ``cli/infill.py``: the
 (``diffusion`` = the stereocrafter preset, ``stereocrafter``, ``m2svid``)
 at ``--model_scale`` tiny, production (``DIFFUSION_SVD``) or svd (the
 weight-exact StereoCrafter graph), ``inspatio_world`` (the Wan-class causal
-DiT) and ``external`` (``--external_command``). ``--checkpoint`` and
-``--clip_checkpoint`` raise: reading a converted checkpoint is ROADMAP A5.
+DiT) and ``external`` (``--external_command``). ``--checkpoint`` reads a
+converted checkpoint (``models.convert``) for every engine, as the JAX CLI
+does: the diffusion engines' weights (a ``{"dit", "enc", "dec"}`` tree for
+``inspatio_world``, a ``convert_stereocrafter`` tree or the inpainter's
+own tree for the SVD-class engines); ``basic`` and ``external`` read it
+and do not use it. ``--clip_checkpoint`` (a ``convert_clip_vision`` tree)
+conditions ``--model_scale svd`` and is not read at the other scales.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-
-_A5 = ("reading a converted checkpoint is not ported yet (ROADMAP A5: the "
-       "checkpoint converters)")
 
 
 def build_parser(parser=None):
@@ -49,8 +51,7 @@ def build_parser(parser=None):
                         "svd); 'tiny' = smoke model; for inspatio_world "
                         "'tiny' = WAN_TINY, else Wan 1.3B")
     p.add_argument("--checkpoint", type=str,
-                   help="converted denoiser checkpoint (not ported yet: "
-                        "ROADMAP A5)")
+                   help="converted denoiser checkpoint")
     p.add_argument("--clip_checkpoint", type=str,
                    help="converted CLIP vision tower for SVD "
                         "cross-attention conditioning")
@@ -65,11 +66,6 @@ def build_parser(parser=None):
                         "stereocrafter engine; opt-in for m2svid/"
                         "inspatio_world)")
     return p
-
-
-def _check_ported(args):
-    if args.checkpoint or args.clip_checkpoint:
-        raise NotImplementedError(f"--checkpoint / --clip_checkpoint: {_A5}")
 
 
 def make_inspatio_engine(model_scale="production", num_inference_steps=None,
@@ -114,7 +110,10 @@ def run(args, device=None):
         infill_diffusion
     from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video
 
-    _check_ported(args)
+    from metric_depth_video_toolbox_tpu_torch.models import convert
+
+    params = (convert.load_checkpoint(args.checkpoint) if args.checkpoint
+              else None)
     shared = []   # the model is built once per batch of clips
 
     def infill(v, mask):
@@ -133,13 +132,18 @@ def run(args, device=None):
         if not shared:
             if engine == "inspatio_world":
                 shared.append(make_inspatio_engine(
-                    args.model_scale, args.num_inference_steps, device))
+                    args.model_scale, args.num_inference_steps, device,
+                    params=params))
             else:
+                extra = {}
+                if args.model_scale == "svd" and args.clip_checkpoint:
+                    extra["clip_params"] = convert.load_checkpoint(
+                        args.clip_checkpoint)
                 shared.append(infill_diffusion.make_engine(
                     "stereocrafter" if engine == "diffusion" else engine,
                     cfg=diffusion_config(args.model_scale,
                                          args.num_inference_steps),
-                    device=device))
+                    params=params, device=device, **extra))
         eng, drv = shared[0]
         drv_kw = {k: w for k, w in drv.items()
                   if k in ("mirror_left", "drift_correct",

@@ -10,6 +10,7 @@
   mdvt-torch mask      generate_video_mask (U²-Net subject masks)
   mdvt-torch convergence  find_convergence_depth
   mdvt-torch infill    SBS infill (every --infill_engine of the JAX CLI)
+  mdvt-torch download-weights  fetch published checkpoints, --convert them
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
@@ -37,11 +38,13 @@ SUBCOMMANDS = {
     "convergence": ("metric_depth_video_toolbox_tpu_torch.cli."
                     "find_convergence_depth", "main"),
     "movie": ("metric_depth_video_toolbox_tpu_torch.cli.movie_2_3d", "main"),
+    "download-weights": ("metric_depth_video_toolbox_tpu_torch.cli."
+                         "download_weights", "main"),
 }
 
 NOT_PORTED = ("track", "align", "export", "view", "split-sbs",
-              "analyse-tracking", "analyse-depth", "flow", "slam", "upscale", "project", "inpaint", "gui",
-              "download-weights", "bench")
+              "analyse-tracking", "analyse-depth", "flow", "slam", "upscale",
+              "project", "inpaint", "gui", "bench")
 
 
 def main(argv=None):

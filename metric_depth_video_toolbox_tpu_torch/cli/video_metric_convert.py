@@ -2,7 +2,10 @@
 
 The same flags and defaults as the JAX package's
 ``cli/video_metric_convert.py``, including the ``.txt`` batch-list
-protocol. Flags whose path is not ported yet raise NotImplementedError.
+protocol. ``--checkpoint`` reads a converted VDA checkpoint
+(``models.convert.convert_vda`` of an upstream
+``video_depth_anything_vit*.pth``, saved as ``.msgpack`` or ``.pkl``).
+Flags whose path is not ported yet raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ def build_parser(parser=None):
     p.add_argument("--no_rolling_average", action="store_true",
                    help="force the first-frames fit (the default)")
     p.add_argument("--checkpoint", type=str,
-                   help="converted checkpoint (not ported yet)")
+                   help="converted checkpoint (models.convert)")
     p.add_argument("--profile", type=str, metavar="DIR",
                    help="capture a profiler trace into DIR (not ported "
                         "yet)")
@@ -49,16 +52,17 @@ def build_parser(parser=None):
 def run(args, device=None):
     from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
 
+    params = None
     if args.checkpoint:
-        raise NotImplementedError("not ported yet: --checkpoint "
-                                  "(ROADMAP A5: checkpoint converters)")
+        from metric_depth_video_toolbox_tpu_torch.models import convert
+        params = convert.load_checkpoint(args.checkpoint)
     if args.profile:
         raise NotImplementedError("not ported yet: --profile")
     outs = dstage.run_batch(
         "vda", args.color_video, max_depth=args.max_depth,
         max_frames=args.max_frames, target_fps=args.target_fps,
         input_size=args.input_size, size=args.model_size,
-        window=args.window, fp32=args.fp32,
+        window=args.window, params=params, fp32=args.fp32,
         reference_depth_video=args.depth_video,
         quantize=None if args.quantize == "none" else args.quantize,
         rolling_average=(0 if args.no_rolling_average

@@ -214,29 +214,36 @@ class DA3Engine:
 
     def load_backbone(self, source):
         """Graft DINOv2 ViT weights into the DA3 backbone. ``source`` is a
-        parameter tree in the JAX package's layout (nested dicts of arrays:
-        the ViT subtree, or a full tree holding ``backbone``, with or
-        without the outer ``params``). Position embeddings are resampled
-        to each model's grid. Models built before the call are rebuilt."""
+        converted checkpoint's path (``models.convert``: e.g.
+        ``convert_dinov2_vit`` of an upstream DINOv2 state dict, written by
+        ``save_checkpoint``) or a parameter tree in the JAX package's layout
+        (nested dicts of arrays: the ViT subtree, or a full tree holding
+        ``backbone``, with or without the outer ``params``). Position
+        embeddings are resampled to each model's grid. Models built before
+        the call are rebuilt."""
         if isinstance(source, str):
-            raise NotImplementedError(
-                "not ported yet: a backbone checkpoint given as a path "
-                "(ROADMAP A5: needs the DINOv2 converter and a converted "
-                "checkpoint); pass a parameter tree")
+            from metric_depth_video_toolbox_tpu_torch.models import convert
+            source = convert.load_checkpoint(source)
         bb = source["params"] if "params" in source else source
         self._backbone = bb["backbone"] if "backbone" in bb else bb
         self._models.clear()
 
-    def _graft_backbone(self, model):
+    def _graft_backbone(self, model, work_hw):
+        """The tree's weights into ``model``'s backbone; its position
+        embedding (of a square grid, as upstream DINOv2 checkpoints have
+        it) resampled to the working grid. The JAX package takes that grid
+        as square too (``round(sqrt(n))`` rows), which scrambles the
+        positions of a grid such as 1080p's 36 x 64; the port resamples to
+        the grid itself."""
         bb = dict(self._backbone)
         pe_s = np.asarray(bb["pos_embed"])
-        nt = model.backbone.pos_embed.shape[1] - 1
-        if pe_s.shape[1] - 1 != nt:
+        p = self.cfg.vit.patch_size
+        grid = (work_hw[0] // p, work_hw[1] // p)
+        if pe_s.shape[1] - 1 != grid[0] * grid[1]:
             ns = pe_s.shape[1] - 1
             gs = int(round(ns ** 0.5))
-            gt = int(round(nt ** 0.5))
             bb["pos_embed"] = vit_mod.interpolate_pos_embed(
-                pe_s, (gs, ns // gs), (gt, nt // gt))
+                pe_s, (gs, ns // gs), grid)
         sd = from_jax.flax_to_state_dict(bb)
         want = model.backbone.state_dict()
         mism = sorted(k for k in want.keys() | sd.keys()
@@ -265,7 +272,7 @@ class DA3Engine:
             else:
                 model.load_state_dict(self._params, strict=True)
             if self._backbone is not None:
-                self._graft_backbone(model)
+                self._graft_backbone(model, work_hw)
             self._models[key] = model.to(self.device).eval()
         return self._models[key]
 

@@ -30,7 +30,15 @@ WanVAEDecoder (RMSNorm ``scale`` and
 FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale), and
 U2Net (``models.segmentation``; its batch norms' running statistics are
 buffers, which ``load_state_dict`` covers like parameters).
-The tree's leaves are taken as numpy arrays, so this module needs no JAX.
+The tree's leaves are taken as numpy arrays (or tensors: a ``bfloat16``
+leaf of ``io.checkpoint.load_checkpoint`` is one), so this module needs no
+JAX.
+
+A load is strict: every parameter and buffer of the module covered, every
+leaf used. ``ignore_unused=True`` ignores the leaves the module has no
+place for, as Flax ``apply`` does (a converted tree holds leaves that a
+configuration does not use, e.g. the learned DPT resize layers without
+``torch_resize``); a missing leaf or a wrong shape still raises.
 """
 
 from __future__ import annotations
@@ -74,6 +82,8 @@ def flax_to_state_dict(params, module=None):
             if hasattr(val, "items"):
                 walk(val, prefix + (key,))
             else:
+                if torch.is_tensor(val):
+                    val = val.to(torch.float32).numpy()
                 arr = _leaf(key, np.asarray(val, dtype=np.float32),
                             prefix[-1] if prefix else None,
                             mods.get(".".join(prefix)))
@@ -84,8 +94,64 @@ def flax_to_state_dict(params, module=None):
     return out
 
 
-def load_flax_params(module, params):
+def load_flax_params(module, params, ignore_unused=False, ignored=None):
     """Load a Flax tree into ``module``; every parameter and buffer must
-    be covered and every leaf used."""
-    module.load_state_dict(flax_to_state_dict(params, module), strict=True)
+    be covered, and every leaf used unless ``ignore_unused``. The dotted
+    names of the leaves ignored are appended to the list ``ignored``, if
+    one is given. -> ``module``"""
+    sd = flax_to_state_dict(params, module)
+    if ignore_unused:
+        want = module.state_dict().keys()
+        unused = sorted(k for k in sd if k not in want)
+        for k in unused:
+            del sd[k]
+        if ignored is not None:
+            ignored.extend(unused)
+    module.load_state_dict(sd, strict=True)
     return module
+
+
+def is_state_dict(params):
+    """A port state dict (``{dotted name: tensor}``), not a Flax tree."""
+    return all(torch.is_tensor(v) for v in params.values())
+
+
+def load_params(module, params, ignore_unused=False, ignored=None):
+    """Load a port state dict (strictly), or a Flax tree as
+    :func:`load_flax_params` does. -> ``module``"""
+    if is_state_dict(params):
+        module.load_state_dict(params, strict=True)
+        return module
+    return load_flax_params(module, params, ignore_unused, ignored)
+
+
+def to_flax_params(module):
+    """The inverse of :func:`flax_to_state_dict`: ``module``'s parameters
+    and persistent buffers as a tree in the JAX package's Flax layout
+    (float32 numpy leaves, without the outer ``params``), e.g. to write
+    the port's weights as a converted checkpoint. A DenseGeneral kernel
+    comes back as a Dense kernel (its head split is not in the module)."""
+    tree = {}
+    for path, mod in module.named_modules():
+        named = list(mod.named_parameters(recurse=False)) + [
+            (n, b) for n, b in mod.named_buffers(recurse=False)
+            if n not in mod._non_persistent_buffers_set]
+        for name, val in named:
+            arr = val.detach().to(torch.float32).cpu().numpy()
+            if name == "weight" and isinstance(mod,
+                                               torch.nn.ConvTranspose2d):
+                key = "kernel"
+                arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+            elif name == "weight" and arr.ndim >= 2:
+                key = "kernel"
+                arr = arr.T if arr.ndim == 2 else arr.transpose(
+                    *range(2, arr.ndim), 1, 0)
+            elif name == "weight":
+                key = "scale"
+            else:
+                key = name
+            node = tree
+            for part in path.split(".") if path else ():
+                node = node.setdefault(part, {})
+            node[key] = np.ascontiguousarray(arr)
+    return tree

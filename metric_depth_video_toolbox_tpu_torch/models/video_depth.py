@@ -130,12 +130,12 @@ class DPTHeadTemporal(nn.Module):
     def __init__(self, cfg: VideoDepthConfig):
         super().__init__()
         d = cfg.dpt
-        dpt_mod.check_config(d)
         self.cfg = cfg
         dt, f = d.compute_dtype, d.features
         for i, ch in enumerate(d.out_channels):
             self.add_module(f"project{i}", Conv(cfg.vit.embed_dim, ch, 1, dt))
             self.add_module(f"scratch{i}", Conv(ch, f, 3, dt, bias=False))
+        dpt_mod.add_resize_layers(self, d)
         dims = (d.out_channels[2], d.out_channels[3], f, f)
         for i, dim in enumerate(dims):
             self.add_module(f"motion{i}", TemporalModule(
@@ -153,26 +153,20 @@ class DPTHeadTemporal(nn.Module):
         _, gh, gw, _ = feats[0].shape
         pyr = []
         for i, f in enumerate(feats):
-            y = getattr(self, f"project{i}")(f)
-            y = dpt_mod._resize(y, (int(gh * dpt_mod.SCALES[i]),
-                                    int(gw * dpt_mod.SCALES[i])))
-            if i == 2:
-                y = self.motion0(y)
-            elif i == 3:
-                y = self.motion1(y)
+            y = dpt_mod.reassemble(self, d, i,
+                                   getattr(self, f"project{i}")(f), (gh, gw))
+            if i >= 2:      # motion0 / motion1 on the two coarsest levels
+                y = getattr(self, f"motion{i - 2}")(y)
             pyr.append(getattr(self, f"scratch{i}")(y))
-        x = self.fusion3(pyr[3], out_hw=pyr[2].shape[1:3])
-        x = self.motion2(x)
-        x = self.fusion2(x, skip=pyr[2], out_hw=pyr[1].shape[1:3])
-        x = self.motion3(x)
-        x = self.fusion1(x, skip=pyr[1], out_hw=pyr[0].shape[1:3])
-        x = self.fusion0(x, skip=pyr[0])
+        x = dpt_mod.fuse(self, d, pyr, lambda i, x: getattr(
+            self, f"motion{i + 2}")(x))
         x = self.head_conv1(x)
         full_hw = (gh * c.vit.patch_size, gw * c.vit.patch_size)
+        up = dpt_mod.upsample(d)
         if d.fast_head:
-            x = dpt_mod._resize(torch.relu(self.head_conv2(x)), full_hw)
+            x = up(torch.relu(self.head_conv2(x)), full_hw)
         else:
-            x = torch.relu(self.head_conv2(dpt_mod._resize(x, full_hw)))
+            x = torch.relu(self.head_conv2(up(x, full_hw)))
         return dpt_mod.head_activation(d, self.head_conv3(x))
 
 

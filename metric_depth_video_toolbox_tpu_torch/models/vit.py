@@ -97,16 +97,21 @@ class Dense(nn.Linear):
 
 class Conv(nn.Conv2d):
     """NHWC convolution with flax ``nn.Conv``'s 'SAME' padding (stride 1
-    or a kernel that tiles the input), computing in a given dtype."""
+    or a kernel that tiles the input), or ``padding`` on every side,
+    computing in a given dtype."""
 
-    def __init__(self, in_ch, out_ch, kernel, dtype, stride=1, bias=True):
+    def __init__(self, in_ch, out_ch, kernel, dtype, stride=1, bias=True,
+                 padding=None):
         super().__init__(in_ch, out_ch, kernel, stride=stride, bias=bias)
         self.compute_dtype = dtype
+        self.explicit_padding = padding
 
     def forward(self, x):
         dt = self.compute_dtype
         k = self.kernel_size[0]
-        if self.stride[0] == 1 and k > 1:
+        if self.explicit_padding is not None:
+            pad = (self.explicit_padding,) * 4
+        elif self.stride[0] == 1 and k > 1:
             lo = (k - 1) // 2
             pad = (lo, k - 1 - lo, lo, k - 1 - lo)
         else:

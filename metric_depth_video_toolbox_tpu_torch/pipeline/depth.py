@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from metric_depth_video_toolbox_tpu_torch.models import depth_anything as da
 from metric_depth_video_toolbox_tpu_torch.models import dpt as dpt_mod
+from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import video_depth as vd
 from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
 from metric_depth_video_toolbox_tpu_torch.ops import solvers
@@ -35,6 +36,30 @@ def _downsample_bilinear(frames, out_hw):
     INTER_LINEAR for a reference depth video of another size)."""
     return F.interpolate(frames[:, None], size=tuple(out_hw),
                          mode="bilinear", align_corners=False)[:, 0]
+
+
+def _check_grid(params, model, work_hw, patch):
+    """Weights made for another patch grid raise, naming both grids (the
+    JAX engine's Flax ``apply`` refuses the position embedding's shape)."""
+    if from_jax.is_state_dict(params):
+        pe = params.get("backbone.pos_embed")
+    else:
+        tree = params.get("params", params)
+        pe = tree.get("backbone", {}).get("pos_embed")
+    if pe is None:
+        return
+    have = int(pe.shape[1]) - 1
+    want = model.backbone.pos_embed.shape[1] - 1
+    if have != want:
+        side = int(round(have ** 0.5))
+        grid = (f" ({side} x {side} if square)" if side * side == have
+                else "")
+        raise ValueError(
+            f"the weights' position embedding holds {have} patches{grid}; "
+            f"the clip's working resolution {work_hw[0]} x {work_hw[1]} "
+            f"is a grid of {work_hw[0] // patch} x {work_hw[1] // patch} = "
+            f"{want} patches: convert the checkpoint for this grid, or "
+            f"choose --input_size to match it")
 
 
 ENGINES: Dict[str, Callable] = {}
@@ -68,11 +93,16 @@ class VDAEngine:
     depth made metric against a metric anchor model or a reference depth
     video.
 
-    ``params`` / ``anchor_params``: state dicts of
+    ``params`` / ``anchor_params``: weights of
     :class:`~..models.video_depth.VideoDepthAnything` and
-    :class:`~..models.depth_anything.DepthAnything` (e.g. from
-    ``models.from_jax``) at the clip's working resolution; None draws
-    seeded weights (``rng_seed``). ``fp32`` selects float32 compute
+    :class:`~..models.depth_anything.DepthAnything` at the clip's working
+    resolution, as port state dicts or as trees in the JAX package's Flax
+    layout (``models.convert.convert_vda``, ``load_checkpoint``); None
+    draws seeded weights (``rng_seed``). A tree's leaves that the model
+    has no place for are ignored, as the JAX engine's Flax ``apply``
+    ignores them (a ``convert_vda`` tree's learned resize layers: this
+    engine runs the default decode, not the weight-exact one); their
+    names are in ``ignored_leaves``. ``fp32`` selects float32 compute
     (default bfloat16).
     """
 
@@ -112,6 +142,7 @@ class VDAEngine:
         self._anchor_params = anchor_params
         self._seed = rng_seed
         self._models = {}
+        self.ignored_leaves = []
 
     def models(self, work_hw):
         """(video model, anchor model) at a working resolution."""
@@ -126,7 +157,9 @@ class VDAEngine:
                     vit_mod.seeded_init(mod, gen,
                                         self.cfg.vit.layerscale_init)
                 else:
-                    mod.load_state_dict(sd, strict=True)
+                    _check_grid(sd, mod, work_hw, self.cfg.vit.patch_size)
+                    from_jax.load_params(mod, sd, ignore_unused=True,
+                                         ignored=self.ignored_leaves)
             self._models[work_hw] = (model.to(self.device).eval(),
                                      anchor.to(self.device).eval())
         return self._models[work_hw]

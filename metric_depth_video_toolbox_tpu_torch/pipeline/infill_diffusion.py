@@ -42,15 +42,6 @@ from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 
 
-def _load(module, params):
-    """Load a port state dict, or a Flax tree through ``models.from_jax``."""
-    if all(torch.is_tensor(v) for v in params.values()):
-        module.load_state_dict(params, strict=True)
-    else:
-        from_jax.load_flax_params(module, params)
-    return module
-
-
 def _store_in_compute_dtype(module):
     """Store the weights of every layer that computes in bfloat16 in
     bfloat16 (each casts its weights before the product anyway), so the
@@ -113,7 +104,7 @@ class DiffusionInfillEngine:
                 if self._clip_params is not None:
                     from metric_depth_video_toolbox_tpu_torch.models import \
                         clip as clip_mod
-                    self.clip = _load(clip_mod.CLIPVisionTower(
+                    self.clip = from_jax.load_params(clip_mod.CLIPVisionTower(
                         self.clip_cfg or clip_mod.CLIP_VIT_H),
                         self._clip_params).eval()
             else:
@@ -122,7 +113,7 @@ class DiffusionInfillEngine:
         if self._params is None:
             dif.init_weights(model, self.generator)
         else:
-            _load(model, self._params)
+            from_jax.load_params(model, self._params)
         self._params = self._clip_params = None
         self.model = _store_in_compute_dtype(model).eval()
 
@@ -190,8 +181,11 @@ class CausalInfillEngine:
     """InSpatio-World-class infill: a Wan-rate causal video DiT over
     Wan-VAE latents (``models.wan``).
 
-    ``params``: ``{"dit", "enc", "dec"}`` state dicts (e.g. from
-    ``models.from_jax``); None draws seeded weights (``rng_seed``). In
+    ``params``: ``{"dit", "enc", "dec"}``, each a port state dict or a
+    tree in the JAX package's Flax layout (a converted checkpoint: e.g.
+    ``convert_wan``'s tree as ``dit``); None draws seeded weights
+    (``rng_seed``). A bare ``convert_wan`` tree, the DiT alone, raises
+    ``KeyError``, as it fails in the JAX engine. In
     bfloat16 mode the DiT's parameters are stored in bfloat16 (every matmul
     casts to bfloat16 anyway). The initial noise of each chunk is drawn from
     the engine's ``torch.Generator`` unless ``infill_chunk`` is given one.
@@ -238,11 +232,17 @@ class CausalInfillEngine:
             mods = {"dit": wan_mod.WanDiT(self.cfg),
                     "enc": wan_mod.WanVAEEncoder(self.cfg.vae),
                     "dec": wan_mod.WanVAEDecoder(self.cfg.vae)}
+        if self._params is not None and "dit" not in self._params:
+            raise KeyError(
+                "dit: the engine's weights are a {'dit', 'enc', 'dec'} tree; "
+                f"this one holds {sorted(self._params)[:4]} (a bare "
+                "convert_wan tree, the DiT alone, fails in the JAX package "
+                "too)")
         for name, mod in mods.items():
             if self._params is None:
                 wan_mod.init_weights(mod, self.generator)
             else:
-                mod.load_state_dict(self._params[name], strict=True)
+                from_jax.load_params(mod, self._params[name])
         self._params = None
         if self.cfg.dtype == "bfloat16":
             mods["dit"].to(torch.bfloat16)

@@ -86,7 +86,9 @@ def _parsers(command):
     import importlib
 
     names = {"movie": "movie_2_3d", "mask": "generate_video_mask",
-             "convergence": "find_convergence_depth", "infill": "infill"}
+             "convergence": "find_convergence_depth", "infill": "infill",
+             "depth": "video_metric_convert",
+             "download-weights": "download_weights"}
     return tuple(importlib.import_module(f"{pkg}.cli.{names[command]}")
                  .build_parser() for pkg in (
                      "metric_depth_video_toolbox_tpu",
@@ -95,7 +97,8 @@ def _parsers(command):
 
 # flags of the reference parsers that the port leaves out; each is exempt
 # from parity only with a case in test_unported_options_raise below
-UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": ()}
+UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": (),
+                  "depth": (), "download-weights": ()}
 
 
 @pytest.mark.parametrize("command", sorted(UNPORTED_FLAGS))

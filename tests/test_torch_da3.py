@@ -457,10 +457,11 @@ def test_da3_engine_short_clip_is_one_unwindowed_forward():
     np.testing.assert_array_equal(fov, fov1)
 
 
-def test_da3_backbone_graft():
-    """A ViT tree (bare, under ``backbone``, or under ``params``) replaces
-    the backbone's weights, its position embedding resampled to the
-    engine's grid; a tree of another width and a path are refused."""
+def test_da3_backbone_graft(tmp_path):
+    """A ViT tree (bare, under ``backbone``, or under ``params``, or in a
+    converted checkpoint file given by its path) replaces the backbone's
+    weights, its position embedding resampled to the engine's grid; a tree
+    of another width and a missing file are refused."""
     frames = clip()[:4]
     src = tda3.DA3Engine(cfg=T_CFG["xla"], device="cpu", rng_seed=3,
                          **WINDOW)
@@ -469,7 +470,10 @@ def test_da3_backbone_graft():
     tree = init_like(jm, 9, jnp.zeros((1, 56, 56, 3)))["params"]
     assert tree["pos_embed"].shape == (1, 17, 64)
     outs = []
-    for source in (tree, {"backbone": tree}, {"params": {"backbone": tree}}):
+    path = str(tmp_path / "backbone.msgpack")
+    jconvert.save_checkpoint(path, {"params": {"backbone": tree}})
+    for source in (tree, {"backbone": tree}, {"params": {"backbone": tree}},
+                   path):
         eng = tda3.DA3Engine(cfg=T_CFG["xla"], device="cpu", rng_seed=3,
                              backbone=source, **WINDOW)
         got = eng.model((28, 42)).backbone.state_dict()
@@ -485,16 +489,42 @@ def test_da3_backbone_graft():
                                tree_sd["block0.attn.qkv.weight"])
         outs.append(eng.infer_video(frames)[0])
         assert np.isfinite(outs[-1]).all()
-    np.testing.assert_array_equal(outs[0], outs[1])
-    np.testing.assert_array_equal(outs[0], outs[2])
+    for out in outs[1:]:
+        np.testing.assert_array_equal(outs[0], out)
     bad = dict(tree, cls_token=np.zeros((1, 1, 999), np.float32))
     eng = tda3.DA3Engine(cfg=T_CFG["xla"], device="cpu", backbone=bad,
                          **WINDOW)
     with pytest.raises(ValueError, match="backbone shape mismatch"):
         eng.infer_video(frames)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(FileNotFoundError, match="dinov2.msgpack"):
         tda3.DA3Engine(cfg=T_CFG["xla"], device="cpu",
-                       backbone="dinov2.npz")
+                       backbone=str(tmp_path / "dinov2.msgpack"))
+
+
+def test_da3_graft_resamples_to_the_working_grid():
+    """On a working grid that is not square (1080p at 504: 36 x 64) the
+    JAX engine's graft resamples the position embedding to a square grid
+    of as many patches (48 x 48), which scrambles the patch positions; the
+    port resamples to 36 x 64, as DINOv2's own interpolation does. On the
+    grids where the two agree (2 x 3 above) they are held equal."""
+    work = (36 * 14, 64 * 14)
+    tree = init_like(jvit.ViT(J_CFG.vit), 9, jnp.zeros((1, 56, 56, 3)))[
+        "params"]
+    eng = tda3.DA3Engine(cfg=T_CFG["xla"], device="cpu", backbone=tree,
+                         **WINDOW)
+    got = eng.model(work).backbone.pos_embed.detach().numpy()
+    np.testing.assert_allclose(got, jconvert.interpolate_pos_embed(
+        tree["pos_embed"], (4, 4), (36, 64)), atol=1e-6)
+    jeng = jda3.DA3Engine(cfg=J_CFG)
+    jeng._params = init_like(jda3.DA3(J_CFG), 1,
+                             jnp.zeros((1,) + work + (3,)))
+    jeng._graft_backbone(tree)
+    np.testing.assert_allclose(
+        np.asarray(jeng._params["params"]["backbone"]["pos_embed"]),
+        jconvert.interpolate_pos_embed(tree["pos_embed"], (4, 4), (48, 48)),
+        atol=1e-6)
+    assert not np.allclose(got, np.asarray(
+        jeng._params["params"]["backbone"]["pos_embed"]), atol=1e-3)
 
 
 # ---------------------------------------------------- sidecars, the CLI ----
@@ -544,13 +574,39 @@ def test_da3_cli_flags_and_defaults_match(monkeypatch):
 def test_da3_cli_unported_options_raise():
     from metric_depth_video_toolbox_tpu_torch.cli import depth_engines as tcli
 
-    for extra, match in ((["--checkpoint", "x.npz"], "A5"),
-                         (["--backbone_checkpoint", "x.npz"], "A5"),
-                         (["--quantize", "int8"], "A13")):
-        args = tcli.build_da3_parser().parse_args(
-            ["--color_video", "x.mp4"] + extra)
-        with pytest.raises(NotImplementedError, match=match):
-            tcli.run_da3(args, device="cpu")
+    args = tcli.build_da3_parser().parse_args(
+        ["--color_video", "x.mp4", "--quantize", "int8"])
+    with pytest.raises(NotImplementedError, match="A13"):
+        tcli.run_da3(args, device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["--checkpoint", "--backbone_checkpoint"])
+def test_da3_cli_checkpoint_flags_run(tmp_path, monkeypatch, flag):
+    """The two checkpoint flags, which raised until checkpoints were read:
+    ``--checkpoint`` is accepted and ignored (as by the JAX package's
+    ``da3_main``), ``--backbone_checkpoint`` reaches the engine, which
+    grafts the file's backbone."""
+    from metric_depth_video_toolbox_tpu_torch.cli import depth_engines as tcli
+    from metric_depth_video_toolbox_tpu_torch.pipeline import depth as tdepth
+
+    path = str(tmp_path / "backbone.msgpack")
+    tree = init_like(jvit.ViT(J_CFG.vit), 9, jnp.zeros((1, 56, 56, 3)))
+    jconvert.save_checkpoint(path, tree)
+    seen = []
+    monkeypatch.setitem(tdepth.ENGINES, "da3", lambda v, engine, **kw: (
+        seen.append(engine) or v + "_depth.mkv"))
+    args = tcli.build_da3_parser().parse_args(
+        ["--color_video", str(tmp_path / "x.mp4"), "--model_size", "vitt",
+         "--da3_resolution", "28", flag, path])
+    assert tcli.run_da3(args, device="cpu") == [args.color_video
+                                                + "_depth.mkv"]
+    eng = seen[0].engine
+    if flag == "--checkpoint":
+        assert eng._backbone is None
+    else:
+        got = eng.model((28, 42)).backbone.state_dict()["block0.mlp.fc1.bias"]
+        np.testing.assert_array_equal(
+            got.numpy(), tree["params"]["block0"]["mlp"]["fc1"]["bias"])
 
 
 def test_da3_file_to_file_matches_jax(tmp_path, monkeypatch):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of it (nor chip_smoke.py) imports JAX,
-Flax or the JAX package; it imports and runs its in-memory path with
-those (and OpenCV) blocked; and it runs on the CPU only when asked to."""
+Flax, ``msgpack`` or the JAX package; it imports and runs its in-memory
+path, and writes and reads a converted checkpoint, with those (and
+OpenCV) blocked; and it runs on the CPU only when asked to."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ from metric_depth_video_toolbox_tpu_torch.utils import device as devmod
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "metric_depth_video_toolbox_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "metric_depth_video_toolbox_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack",
+             "metric_depth_video_toolbox_tpu")
 
 
 def _sources():
@@ -47,8 +49,8 @@ def test_no_jax_imports(path):
 
 BLOCKED = """
 import sys
-for name in ("jax", "jaxlib", "flax", "metric_depth_video_toolbox_tpu",
-             "cv2"):
+for name in ("jax", "jaxlib", "flax", "msgpack",
+             "metric_depth_video_toolbox_tpu", "cv2"):
     sys.modules[name] = None
 import pkgutil, importlib, numpy as np, torch
 import metric_depth_video_toolbox_tpu_torch as pkg
@@ -109,7 +111,22 @@ assert attention_packed.LAUNCHES == {"packed_flash_attention": 0}
 from metric_depth_video_toolbox_tpu_torch.cli import depth_engines
 assert depth_engines.build_da3_parser().parse_args(
     ["--color_video", "x"]).model_size == "vitl"
+import os, tempfile
+from metric_depth_video_toolbox_tpu_torch.models import convert, from_jax
+with tempfile.TemporaryDirectory() as tmp:
+    ckpt = os.path.join(tmp, "wan.msgpack")
+    dit = wan.WanDiT(wan.WAN_TINY)
+    convert.save_checkpoint(ckpt, {"params": from_jax.to_flax_params(dit)})
+    back = wan.WanDiT(wan.WAN_TINY)
+    from_jax.load_flax_params(back, convert.load_checkpoint(ckpt))
+    assert all(torch.equal(a, b) for a, b in zip(
+        dit.state_dict().values(), back.state_dict().values()))
+try:
+    convert.convert_torch_file("raft.pth", "raft")
+except NotImplementedError as e:
+    assert "A14" in str(e)
 assert "jax" not in sys.modules or sys.modules["jax"] is None
+assert sys.modules["msgpack"] is None
 print("OK")
 """
 

@@ -12,6 +12,8 @@ JAX engine's own noise: uint8 within 1 LSB on at most 0.5% of bytes
 measured 0), every pixel outside the holes unchanged.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from metric_depth_video_toolbox_tpu.ops import infill as jinfill
 from metric_depth_video_toolbox_tpu.pipeline import infill_diffusion as jid
 from metric_depth_video_toolbox_tpu_torch.cli import infill as tcli
 from metric_depth_video_toolbox_tpu_torch.cli import main as tmain
+from metric_depth_video_toolbox_tpu_torch.models import convert as tconvert
 from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import wan as tw
 from metric_depth_video_toolbox_tpu_torch.ops import drift as tdrift
@@ -295,16 +298,36 @@ def test_parser_matches_jax():
     assert _options(tcli.build_parser()) == _options(jcli.build_parser())
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--infill_engine", "inspatio_world", "--checkpoint", "x.npz"],
-     "converted checkpoint"),
-    (["--infill_engine", "diffusion", "--checkpoint", "x.msgpack"], "A5"),
-    (["--infill_engine", "stereocrafter", "--model_scale", "svd",
-      "--clip_checkpoint", "clip.msgpack"], "A5")])
-def test_cli_raises_for_unported(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tmain.main(["infill", "--sbs_color_video",
-                    str(tmp_path / "none.mkv")] + argv)
+@pytest.mark.parametrize("engine", ["basic", "external", "diffusion"])
+def test_cli_checkpoint_flags_load(tmp_path, monkeypatch, engine):
+    """``--checkpoint`` is read for every engine, as by the JAX CLI (and
+    used by the diffusion engines only); ``--clip_checkpoint`` is read at
+    ``--model_scale svd`` only; a missing file raises naming it."""
+    from metric_depth_video_toolbox_tpu_torch.pipeline import infill_video
+    read, calls = [], []
+    monkeypatch.setattr(tconvert, "load_checkpoint",
+                        lambda p: read.append(os.path.basename(p)) or {})
+    monkeypatch.setattr(tid, "infill_sbs_video_diffusion",
+                        lambda *a, **kw: calls.append(kw["engine"]) or "o")
+    monkeypatch.setattr(tid, "infill_sbs_video_external",
+                        lambda *a, **kw: calls.append(a) or "o")
+    monkeypatch.setattr(infill_video, "infill_sbs_video",
+                        lambda *a, **kw: calls.append(kw) or "o")
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    argv = ["infill", "--sbs_color_video", "s.mkv", "--infill_engine",
+            engine, "--checkpoint", "w.msgpack", "--clip_checkpoint",
+            "c.msgpack", "--model_scale", "tiny"]
+    if engine == "external":
+        argv += ["--external_command", "run.py"]
+    tmain.main(argv)
+    assert read == ["w.msgpack"] and len(calls) == 1
+    if engine == "diffusion":
+        assert calls[0]._params == {} and calls[0]._clip_params is None
+    monkeypatch.undo()
+    with pytest.raises(FileNotFoundError, match="absent.msgpack"):
+        tmain.main(["infill", "--sbs_color_video", "s.mkv",
+                    "--infill_engine", engine, "--checkpoint",
+                    str(tmp_path / "absent.msgpack")])
 
 
 def _engine_key(eng):

@@ -205,6 +205,29 @@ def test_from_jax_layouts():
     assert set(sd) == {"d.weight", "d.bias", "c.weight", "n.weight"}
 
 
-def test_torch_resize_dpt_not_ported():
-    with pytest.raises(NotImplementedError, match="A5"):
-        tdpt.DPTHead(dataclasses.replace(T_DPT, torch_resize=True), 64)
+@pytest.mark.parametrize("fast_head", [False, True])
+@pytest.mark.parametrize("temporal", [False, True], ids=["dpt", "vda"])
+def test_torch_resize_dpt_matches_flax(temporal, fast_head):
+    """The weight-exact decode (``torch_resize=True``: learned resize
+    layers, align_corners resizes, fusion0's x2 upsample) of ``DPTHead``
+    and ``DPTHeadTemporal``, in both head orders, against the Flax heads
+    on the same tree."""
+    exact = dict(torch_resize=True, fast_head=fast_head)
+    jd, td = (dataclasses.replace(J_DPT, **exact),
+              dataclasses.replace(T_DPT, **exact))
+    rng = np.random.default_rng(8)
+    feats = [rng.standard_normal((3, 3, 4, 64)).astype(np.float32)
+             for _ in range(4)]
+    if temporal:
+        jm = jvd.DPTHeadTemporal(dataclasses.replace(VDA_J, dpt=jd))
+        tm = tvd.DPTHeadTemporal(dataclasses.replace(VDA_T, dpt=td))
+    else:
+        jm, tm = jdpt.DPTHead(jd), tdpt.DPTHead(td, 64)
+    params = init(jm, 8, [jnp.asarray(f) for f in feats])
+    assert {"resize0", "resize1", "resize3"} <= set(params["params"])
+    want = jax.jit(jm.apply)(params, [jnp.asarray(f) for f in feats])
+    from_jax.load_flax_params(tm, params)
+    with torch.no_grad():
+        got = tm(as_torch(feats))
+    assert got.shape == (3, 3 * 14, 4 * 14, 1)
+    assert_close(got.numpy(), want)
