@@ -123,6 +123,28 @@ of which fails the run on error:
                 the DA3 clip, one 16-frame 1080p batch of U²-Net SEG_FULL
                 masks and one 4-frame 3840x1080 batch of the basic infill
                 under torch.profiler: device time, top kernels.
+ 11. stereo_paths the general stereo renderer and the novel-view render
+                (after the earlier phases' models are freed), file to file
+                through cli/main.py on phase 3's first 16 frames (depth as
+                RGB-encoded FFV1, the colour clip) under a seeded smooth
+                camera path: (a) ``stereo --transformation_file
+                --infill_mask`` (the forward warp's scatter z-buffer and
+                splatted edge anchors), (b) the same with
+                ``--transformation_lock_frame 8 --render_as_pointcloud``,
+                (c) ``--touchly1 --infill_mask`` (counts zeroed before,
+                read after: the disparity sweep twice a batch, the first
+                launch bit-equal to the plain sweep), (d) ``--vr180
+                --infill_mask`` and (e) ``--touchly0`` on 8 frames at the
+                1920 eye size, (f) ``--mask_video --save_background`` on
+                10 frames (to the first downsample; each downsample's point
+                counts and the .npy size printed), then ``--load_background
+                --infill_mask``, (g) ``view --render`` and the same with
+                ``--render_as_pointcloud``, (h) (a) with ``--profile DIR``
+                (a trace file must appear); each with its wall, frames/s
+                and output size. Then one forward-warp stereo step at batch
+                8 under torch.profiler (device time, busy share, top 5
+                device ops) and on the card and on the CPU for 2 frames
+                (the hole masks must agree on >= 99% of pixels).
 
 It then prints a JSON line of the kernels' launches, times, bounds,
 library times (and kernel / library ratios), registers and spilled bytes,
@@ -2578,6 +2600,297 @@ def phase_checkpoints(frames, sbs, sbs_mask, da3_frames, depth_fps, da3_fps,
     return res
 
 
+# ------------------------------------------------ phase: stereo_paths ----
+
+SP_FRAMES = 16          # the stereo_paths clip: phase 3's first 16 frames
+SP_VR_FRAMES = 8        # (d) VR180 and (e) Touchly0 at the 1920 eye size
+SP_BG_FRAMES = 10       # (f) the save runs to the first downsample
+SP_BATCH = 16           # the stereo CLI's default batch
+
+
+def camera_path(n, seed=21):
+    """A seeded smooth camera path (n, 4, 4) float32: per frame a yaw and
+    a pitch of a few tenths of a degree and a translation of a few mm,
+    each a sine of the frame index with a seeded phase."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ph = rng.uniform(0.0, 2.0 * np.pi, 5)
+    out = []
+    for i in range(n):
+        s = [np.sin(2.0 * np.pi * i / n + p) for p in ph]
+        yaw, pitch = np.radians(0.4) * s[0], np.radians(0.3) * s[1]
+        cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+        m = np.eye(4)
+        m[:3, :3] = (np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+                     @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]))
+        m[:3, 3] = [0.004 * s[2], 0.003 * s[3], 0.005 * s[4]]
+        out.append(m)
+    return np.asarray(out, np.float32)
+
+
+def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
+                       card):
+    """The general stereo renderer and the novel-view render, file to file
+    through cli/main.py on a 16-frame 1080p clip (phase 3's depth, RGB-
+    encoded FFV1, and its colour clip) with a seeded camera path: (a)
+    ``stereo --transformation_file --infill_mask`` (forward warp, splat
+    anchors), (b) the same with ``--transformation_lock_frame 8
+    --render_as_pointcloud``, (c) ``--touchly1 --infill_mask`` (B1 twice a
+    batch; its first launch held bit for bit against the plain sweep), (d)
+    ``--vr180 --infill_mask`` and (e) ``--touchly0``, 8 frames each at the
+    1920 eye size, (f) ``--mask_video --save_background`` (10 frames: to the
+    first downsample) then ``--load_background --infill_mask``, (g) ``view
+    --render`` and the same ``--render_as_pointcloud``, (h) (a) with
+    ``--profile``. Then one forward-warp stereo step at batch 8 under
+    torch.profiler, and the same step on the card and on the CPU for 2
+    frames: the hole masks must agree on >= 99% of pixels. -> numbers"""
+    try:
+        import cv2  # noqa: F401 - the commands read and write video files
+    except ImportError as e:
+        raise RuntimeError("stereo_paths: OpenCV (cv2) is not installed; "
+                           "the commands read and write video files") from e
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.ops import codec
+    from metric_depth_video_toolbox_tpu_torch.ops import voxel
+    from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
+    from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
+
+    t_phase = time.perf_counter()
+    n = SP_FRAMES
+    res = {"runs": {}}
+    tfs = camera_path(n)
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.mkv")
+        depth = os.path.join(tmp, "clip_depth.mkv")
+        mask = os.path.join(tmp, "clip_mask.mkv")
+        tf = os.path.join(tmp, "clip_transformations.json")
+        vio.save_depth_video(metric[:n], depth, 24, 100.0)
+        vio.save_rgb_video(frames[:n], clip, 24)
+        # the subject: a box of a quarter of the frame, moving right by
+        # W/64 a frame (a mask of the depth would follow the seeded
+        # weights' depth range)
+        subject = np.zeros((n, H, W, 3), np.uint8)
+        for i in range(n):
+            left = W // 3 + i * (W // 64)
+            subject[i, H // 4:3 * H // 4, left:left + W // 4] = 255
+        vio.save_rgb_video(subject, mask, 24)
+        del subject
+        sidecar.save_transformations(tf, tfs)
+        base = ["--depth_video", depth, "--color_video", clip, "--xfov",
+                "60"]
+
+        def run(tag, argv, out, frames_, size, expect=None):
+            """One command through cli/main.py; its counts zeroed before and
+            read after; the output's frame count and size checked."""
+            zero_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            expect_counts(f"stereo_paths {tag}", expect or {},
+                          "the launches of this command")
+            count, width, height, _ = vio.video_info(out)
+            if (count, width, height) != (frames_, *size):
+                raise RuntimeError(f"stereo_paths {tag}: {out}: {count} "
+                                   f"frames of {width}x{height}, expected "
+                                   f"{frames_} of {size[0]}x{size[1]}")
+            r = {"wall_s": wall, "fps": frames_ / wall,
+                 "bytes": os.path.getsize(out), "size": f"{width}x{height}"}
+            res["runs"][tag] = r
+            log(f"[stereo_paths] ({card}) {tag}: {wall:.3f} s, "
+                f"{r['fps']:.3f} frames/s, {frames_} frames of "
+                f"{width}x{height}, {r['bytes'] / 2**20:.1f} MiB")
+            return r
+
+        def hole_share(path, most=0.5):
+            with vio.VideoReader(path + "_infillmask.mkv") as r:
+                share = float((r.read_frame(n // 2).max(-1) > 0).mean())
+            if not 0.0 < share < most:
+                raise RuntimeError(f"stereo_paths: {path}: implausible "
+                                   f"hole share {share}")
+            return share
+
+        sbs = depth + "_stereo.mkv"
+        run("(a) --transformation_file --infill_mask",
+            ["stereo", *base, "--transformation_file", tf, "--infill_mask"],
+            sbs, n, (2 * W, H))
+        res["hole_share_a"] = hole_share(sbs)
+        run("(b) + --transformation_lock_frame 8 --render_as_pointcloud",
+            ["stereo", *base, "--transformation_file", tf, "--infill_mask",
+             "--transformation_lock_frame", "8", "--render_as_pointcloud"],
+            sbs, n, (2 * W, H))
+        res["hole_share_b"] = hole_share(sbs)
+
+        # (c): the first B1 launch kept (arguments and results, copied)
+        launch = ws.disparity_sweep
+        held = []
+
+        def keep(*args):
+            copy = (tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args) if not held else None)
+            out = launch(*args)
+            if copy is not None:
+                held.append((copy, tuple(o.clone() for o in out)))
+            return out
+        ws.disparity_sweep = keep
+        batches = -(-n // SP_BATCH)
+        try:
+            run("(c) --touchly1 --infill_mask",
+                ["stereo", *base, "--touchly1", "--infill_mask"],
+                depth + "_Touchly1.mkv", n, (W, 2 * H),
+                expect={"disparity_sweep": 2 * batches})
+        finally:
+            ws.disparity_sweep = launch
+        args, out = held[0]
+        ref = ws.disparity_sweep_plain(*args)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(out, ref)]
+        if not all(same):
+            raise RuntimeError(f"stereo_paths (c): the first B1 launch: "
+                               f"kernel != plain (z, color, found equal: "
+                               f"{same})")
+        res["touchly1_launches"] = 2 * batches
+        res["touchly1_sweep"] = (f"B={args[0].shape[0]} H={args[0].shape[1]}"
+                                 f" WP={args[0].shape[2]} P={args[6]} "
+                                 f"C={args[1].shape[1]}")
+        log(f"[stereo_paths] (c) B1 launches {2 * batches} ({batches} "
+            f"batch of {SP_BATCH}: main + anchor sweep); the first launch "
+            f"({res['touchly1_sweep']}) == plain bit for bit")
+        del held[:]
+
+        run("(d) --vr180 --infill_mask (8 frames, eye 1920)",
+            ["stereo", *base, "--vr180", "--infill_mask", "--max_frames",
+             str(SP_VR_FRAMES)], sbs, SP_VR_FRAMES, (2 * 1920, 1920))
+        run("(e) --touchly0 (8 frames, eye 1920)",
+            ["stereo", *base, "--touchly0", "--max_frames",
+             str(SP_VR_FRAMES)], depth + "_Touchly0.mkv", SP_VR_FRAMES,
+            (3 * 1920, 1920))
+
+        # (f): the cloud's point count after each downsample
+        downsample = voxel.perspective_aware_downsample
+        counts_bg = []
+
+        def counted(points, *a, **kw):
+            out = downsample(points, *a, **kw)
+            counts_bg.append((len(points), len(out[0])))
+            return out
+        voxel.perspective_aware_downsample = counted
+        npy = depth + "_background.npy"
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            cli.main(["stereo", *base, "--mask_video", mask,
+                      "--save_background", "--max_frames",
+                      str(SP_BG_FRAMES)])
+            wall = time.perf_counter() - t0
+            expect_counts("stereo_paths (f) --save_background", {},
+                          "the launches of this command")
+        finally:
+            voxel.perspective_aware_downsample = downsample
+        cloud = np.load(npy, allow_pickle=True)
+        res["background"] = {"save_s": wall, "npy_bytes": os.path.getsize(
+            npy), "points": int(cloud.shape[1]), "downsamples": counts_bg}
+        log(f"[stereo_paths] ({card}) (f) --mask_video --save_background "
+            f"({SP_BG_FRAMES} frames): {wall:.3f} s; downsamples (points "
+            f"before -> after): {counts_bg}; {cloud.shape[1]} points saved, "
+            f".npy {os.path.getsize(npy) / 2**20:.1f} MiB")
+        if (not counts_bg or not counts_bg[-1][1]
+                or cloud.shape[1] != counts_bg[-1][1]):
+            raise RuntimeError(f"stereo_paths (f): cloud {cloud.shape}, "
+                               f"downsamples {counts_bg}")
+        run("(f) --load_background --infill_mask",
+            ["stereo", *base, "--load_background", npy, "--infill_mask"],
+            sbs, n, (2 * W, H))
+        # the downsampled cloud is sparse (voxels of 0.003 in x/z, ~5 px
+        # at 1080p and 60 degrees) and splats 3 x 3: many holes
+        res["hole_share_f"] = hole_share(sbs, most=1.0)
+
+        view = ["view", "--depth_video", depth, "--color_video", clip,
+                "--x", "0.05", "--tx", "0", "--ty", "0", "--tz", "5",
+                "--render"]
+        run("(g) view --render", view, depth + "_render.mkv", n, (W, H))
+        run("(g) view --render --render_as_pointcloud",
+            view + ["--render_as_pointcloud"], depth + "_render.mkv", n,
+            (W, H))
+
+        trace_dir = os.path.join(tmp, "trace")
+        run("(h) (a) with --profile",
+            ["stereo", *base, "--transformation_file", tf, "--infill_mask",
+             "--profile", trace_dir], sbs, n, (2 * W, H))
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        if not traces:
+            raise RuntimeError(f"stereo_paths (h): no trace in {trace_dir}")
+        res["trace_bytes"] = os.path.getsize(os.path.join(trace_dir,
+                                                          traces[0]))
+        log(f"[stereo_paths] (h) trace {traces[0]}: "
+            f"{res['trace_bytes'] / 2**20:.1f} MiB")
+
+    # one forward-warp stereo step at batch 8 (the camera path's first 8
+    # frames), profiled; then 2 frames on the card and on the CPU
+    cfg = stereo.StereoConfig(width=W, height=H, make_infill_mask=True,
+                              warp_method="forward")
+    args = stereo_inputs(codec.encode_depth_frame(torch.as_tensor(
+        metric[:BATCH], device=dev), 100.0), torch.as_tensor(
+            frames[:BATCH], device=dev))
+    args = args[:3] + (torch.as_tensor(tfs[:BATCH], device=dev),) + args[4:]
+    stereo.stereo_step(cfg, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stereo.stereo_step(cfg, *args)
+    wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):           # the first profile pays the tracer's setup
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stereo.stereo_step(cfg, *args)
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    res["forward_step"] = {"wall_ms": wall * 1e3, "device_ms": busy,
+                           "busy": busy / (wall * 1e3),
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2**30}
+    log(f"[stereo_paths] ({card}) forward-warp stereo step, batch "
+        f"{BATCH} 1080p, camera path, infill mask: device busy {busy:.3f} "
+        f"ms of {wall * 1e3:.3f} ms wall unprofiled "
+        f"({busy / (wall * 1e3):.1%}); peak "
+        f"{res['forward_step']['peak_gib']:.2f} GiB")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:5]:
+        ms = e.self_device_time_total / 1e3
+        log(f"[stereo_paths]   {ms:9.3f} ms {ms / max(busy, 1e-9):6.1%} "
+            f"x{e.count:<5d} {e.key[:100]}")
+    two = tuple(a[:2] for a in args)
+    t0 = time.perf_counter()
+    card_out = stereo.stereo_step(cfg, *two)
+    cpu_out = stereo.stereo_step(cfg, *(a.cpu() for a in two))
+    t_pair = time.perf_counter() - t0
+    differ = float(np.mean(card_out["image"] != cpu_out["image"]))
+    holes = [o["infill_mask"].max(-1) > 0 for o in (card_out, cpu_out)]
+    agree = float(np.mean(holes[0] == holes[1]))
+    res["card_vs_cpu"] = {"bytes_differing": differ, "hole_agreement": agree,
+                          "hole_share": float(holes[0].mean())}
+    log(f"[stereo_paths] forward step, 2 frames, card vs CPU ({t_pair:.1f} "
+        f"s): {differ:.5%} of image bytes differ, hole masks agree on "
+        f"{agree:.5%} of pixels (hole share {holes[0].mean():.4f})")
+    if agree < 0.99:
+        raise RuntimeError(f"stereo_paths: card and CPU hole masks agree on "
+                           f"{agree:.4%} of pixels (< 99%)")
+    res["s"] = time.perf_counter() - t_phase
+    log(f"[stereo_paths] ({card}) phase: {res['s']:.3f} s")
+    return res
+
+
+
 def main():
     t_script = time.perf_counter()
     try:
@@ -2595,6 +2908,7 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     import argparse
+    import gc
 
     import numpy as np
 
@@ -2724,6 +3038,13 @@ def main():
                   (da3_eng, da3_frames, da3_res["flash_packed"]["s"]), sbs,
                   sbs_mask, dev)
 
+    # the last phase runs no model of the earlier ones: free them
+    del eng, drv, eye, da3_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    stereo_paths = phase_stereo_paths(metric, frames, dev, zero_counts,
+                                      expect_counts, smi[0])
+
     def over(r):
         return r["ms"] / r["library_ms"] if r.get("library_ms") else None
 
@@ -2740,6 +3061,7 @@ def main():
         "replaces": "metric_depth_video_toolbox_tpu/ops/warp_pallas.py:43",
         "launches": launches,
         "movie_launches": movie_launches,
+        "touchly1_launches": stereo_paths["touchly1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in (
             *sweep.values(), *movie_sweeps.values())),
         "ms": main_["ms"], "plain_ms": main_["plain_ms"],
@@ -2828,6 +3150,7 @@ def main():
                               "diffusion_resume": movie_diffusion}}))
     log(json.dumps({"svd_infill": svd_infill, "card": smi[0]}))
     log(json.dumps({"checkpoints": checkpoints, "card": smi[0]}))
+    log(json.dumps({"stereo_paths": stereo_paths, "card": smi[0]}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])
     log(json.dumps({"ok": True, "device": {

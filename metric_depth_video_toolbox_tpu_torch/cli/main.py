@@ -6,11 +6,13 @@
   mdvt-torch engine    per-engine depth CLIs (engine da3; the others are
                        not ported yet)
   mdvt-torch da3       DA3 multi-view depth + poses + xfovs (= engine da3)
-  mdvt-torch stereo    stereo_rerender (disparity-sweep path)
+  mdvt-torch stereo    stereo_rerender (SBS, Touchly, VR180, background)
   mdvt-torch mask      generate_video_mask (U²-Net subject masks)
   mdvt-torch convergence  find_convergence_depth
   mdvt-torch infill    SBS infill (every --infill_engine of the JAX CLI)
   mdvt-torch download-weights  fetch published checkpoints, --convert them
+  mdvt-torch view      view_depthfile --render (novel-view render to video;
+                       the interactive viewer is not ported yet)
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
@@ -40,9 +42,11 @@ SUBCOMMANDS = {
     "movie": ("metric_depth_video_toolbox_tpu_torch.cli.movie_2_3d", "main"),
     "download-weights": ("metric_depth_video_toolbox_tpu_torch.cli."
                          "download_weights", "main"),
+    "view": ("metric_depth_video_toolbox_tpu_torch.cli.view_depthfile",
+             "main"),
 }
 
-NOT_PORTED = ("track", "align", "export", "view", "split-sbs",
+NOT_PORTED = ("track", "align", "export", "split-sbs",
               "analyse-tracking", "analyse-depth", "flow", "slam", "upscale",
               "project", "inpaint", "gui", "bench")
 

@@ -1,29 +1,13 @@
-"""CLI: depth(+color) video -> stereo SBS video (sweep path).
+"""CLI: depth(+color) video -> stereo SBS / Touchly / VR180 video.
 
 The same flags and defaults as the JAX package's
-``cli/stereo_rerender.py``. Flags whose path is not ported yet raise
-NotImplementedError naming the ROADMAP item.
+``cli/stereo_rerender.py``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-
-_NOT_PORTED = {
-    "vr180": "--vr180 (ROADMAP A4: equirect output)",
-    "touchly0": "--touchly0 (ROADMAP A4: Touchly outputs)",
-    "touchly1": "--touchly1 (ROADMAP A4: Touchly outputs)",
-    "transformation_file": "--transformation_file (ROADMAP A3: "
-                           "forward_warp for camera transformations)",
-    "mask_video": "--mask_video (ROADMAP A4: background mode)",
-    "save_background": "--save_background (ROADMAP A4: background mode)",
-    "load_background": "--load_background (ROADMAP A4: background mode)",
-    "render_as_pointcloud": "--render_as_pointcloud (ROADMAP A3: "
-                            "splat_points)",
-    "profile": "--profile",
-}
-
 
 def build_parser(parser=None):
     p = parser or argparse.ArgumentParser(
@@ -68,7 +52,8 @@ def build_parser(parser=None):
                         "accumulation rendering")
     p.add_argument("--save_background", action="store_true")
     p.add_argument("--profile", type=str, metavar="DIR",
-                   help="capture a profiler trace of the run into DIR")
+                   help="capture a torch.profiler trace of the run into "
+                        "DIR (a Chrome trace JSON)")
     p.add_argument("--load_background", type=str)
     return p
 
@@ -76,10 +61,8 @@ def build_parser(parser=None):
 def run(args, device=None):
     from metric_depth_video_toolbox_tpu_torch.io import sidecar
     from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
+    from metric_depth_video_toolbox_tpu_torch.utils.timer import device_trace
 
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"not ported yet: {what}")
     if args.xfov is None and args.yfov is None and args.xfov_file is None:
         raise SystemExit("Either --xfov_file, --xfov or --yfov is required.")
     if args.green_and_black_infill_mask and args.do_basic_infill:
@@ -87,6 +70,8 @@ def run(args, device=None):
                          "--do_basic_infill are incompatible.")
 
     xfovs = sidecar.load_xfovs(args.xfov_file) if args.xfov_file else None
+    transformations = (sidecar.load_transformations(args.transformation_file)
+                       if args.transformation_file else None)
     convergence = None
     if args.convergence_file:
         with open(args.convergence_file, encoding="utf-8") as f:
@@ -97,19 +82,28 @@ def run(args, device=None):
     if args.dont_remove_edges:
         remove_edges = False
 
-    out = stereo.render_stereo_video(
-        args.depth_video, color_video=args.color_video, xfov=args.xfov,
-        yfov=args.yfov, xfovs=xfovs, convergence_depths=convergence,
-        master_xfov=args.master_xfov, max_depth=args.max_depth,
-        pupillary_distance_mm=args.pupillary_distance,
-        max_frames=args.max_frames, batch_size=args.batch_size,
-        infill_mask=args.infill_mask, remove_edges=remove_edges,
-        place_edge_points=not args.dont_place_points_in_edges,
-        green_and_black_infill_mask=args.green_and_black_infill_mask,
-        do_basic_infill=args.do_basic_infill,
-        create_sbs_depth=args.create_sbs_depth_video,
-        num_planes=args.num_planes, compressed=args.compressed,
-        fused_anchor_sweep=args.fused_anchor_sweep, device=device)
+    with device_trace(args.profile):
+        out = stereo.render_stereo_video(
+            args.depth_video, color_video=args.color_video, xfov=args.xfov,
+            yfov=args.yfov, xfovs=xfovs, transformations=transformations,
+            convergence_depths=convergence, master_xfov=args.master_xfov,
+            max_depth=args.max_depth,
+            pupillary_distance_mm=args.pupillary_distance,
+            max_frames=args.max_frames, batch_size=args.batch_size,
+            infill_mask=args.infill_mask, vr180=args.vr180,
+            touchly0=args.touchly0, touchly1=args.touchly1,
+            remove_edges=remove_edges, do_basic_infill=args.do_basic_infill,
+            place_edge_points=not args.dont_place_points_in_edges,
+            green_and_black_infill_mask=args.green_and_black_infill_mask,
+            create_sbs_depth=args.create_sbs_depth_video,
+            touchly_max_depth=args.touchly_max_depth,
+            touchly_min_depth=args.touchly_min_depth,
+            transformation_lock_frame=args.transformation_lock_frame,
+            mask_video=args.mask_video, save_background=args.save_background,
+            load_background=args.load_background,
+            render_as_pointcloud=args.render_as_pointcloud,
+            num_planes=args.num_planes, compressed=args.compressed,
+            fused_anchor_sweep=args.fused_anchor_sweep, device=device)
     print(f"Processing complete. Output saved to: {out}")
     return out
 

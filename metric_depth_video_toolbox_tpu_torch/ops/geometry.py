@@ -112,3 +112,71 @@ def convergence_angle(distance, pupillary_distance):
     atan((IPD/2) / d)."""
     d = torch.as_tensor(distance, dtype=torch.float32)
     return torch.atan2(torch.full_like(d, pupillary_distance / 2.0), d)
+
+
+def fov_from_camera_matrix(k):
+    """(xfov_deg, yfov_deg) of intrinsics k (..., 3, 3) with a centered
+    principal point, in float32."""
+    w = k[..., 0, 2] * 2.0
+    h = k[..., 1, 2] * 2.0
+    return (torch.rad2deg(2.0 * torch.atan2(w, 2.0 * k[..., 0, 0])),
+            torch.rad2deg(2.0 * torch.atan2(h, 2.0 * k[..., 1, 1])))
+
+
+def project_points(points, k, eps=1e-9):
+    """Camera-space points (..., N, 3) -> pixel coordinates (..., N, 2)
+    and depth (..., N) through intrinsics k (..., 3, 3); pinhole, no
+    distortion."""
+    z = points[..., 2]
+    safe_z = torch.where(torch.abs(z) < eps, torch.full_like(z, eps), z)
+    u = points[..., 0] / safe_z * k[..., 0, 0, None] + k[..., 0, 2, None]
+    v = points[..., 1] / safe_z * k[..., 1, 1, None] + k[..., 1, 2, None]
+    return torch.stack([u, v], dim=-1), z
+
+
+def transform_points(points, transform):
+    """(..., N, 3) points through (..., 4, 4) homogeneous transforms."""
+    return (torch.einsum("...ij,...nj->...ni", transform[..., :3, :3],
+                         points) + transform[..., None, :3, 3])
+
+
+def transform_depth_map(points_hw3, transform):
+    """(..., H, W, 3) image-shaped point maps through (..., 4, 4)
+    transforms."""
+    return (torch.einsum("...ij,...hwj->...hwi", transform[..., :3, :3],
+                         points_hw3) + transform[..., None, None, :3, 3])
+
+
+def look_at(eye, target, up):
+    """Right-handed look-at view matrix (4, 4), GL convention: the camera
+    looks down -Z."""
+    eye = torch.as_tensor(eye, dtype=torch.float32)
+    target = torch.as_tensor(target, dtype=torch.float32)
+    up = torch.as_tensor(up, dtype=torch.float32)
+    f = target - eye
+    f = f / (torch.linalg.vector_norm(f) + 1e-12)
+    s = torch.linalg.cross(f, up)
+    s = s / (torch.linalg.vector_norm(s) + 1e-12)
+    u = torch.linalg.cross(s, f)
+    m = torch.eye(4, dtype=torch.float32)
+    m[0, :3] = s
+    m[1, :3] = u
+    m[2, :3] = -f
+    m[:3, 3] = m[:3, :3] @ (-eye)
+    return m
+
+
+def frustum_corners(k, width, height, near, far, cam_to_world=None):
+    """(8, 3) frustum corner points of intrinsics k (3, 3): the near
+    plane's four, then the far plane's, optionally through a 4x4
+    camera-to-world transform."""
+    fx, fy = k[..., 0, 0], k[..., 1, 1]
+    cx, cy = k[..., 0, 2], k[..., 1, 2]
+    xs = torch.tensor([0.0, width, width, 0.0], dtype=torch.float32)
+    ys = torch.tensor([0.0, 0.0, height, height], dtype=torch.float32)
+    dirs = torch.stack([(xs - cx) / fx, (ys - cy) / fy,
+                        torch.ones(4, dtype=torch.float32)], dim=-1)
+    corners = torch.cat([dirs * near, dirs * far], dim=0)
+    if cam_to_world is not None:
+        corners = transform_points(corners[None], cam_to_world)[0]
+    return corners

@@ -88,7 +88,7 @@ def _parsers(command):
     names = {"movie": "movie_2_3d", "mask": "generate_video_mask",
              "convergence": "find_convergence_depth", "infill": "infill",
              "depth": "video_metric_convert",
-             "download-weights": "download_weights"}
+             "download-weights": "download_weights", "view": "view_depthfile"}
     return tuple(importlib.import_module(f"{pkg}.cli.{names[command]}")
                  .build_parser() for pkg in (
                      "metric_depth_video_toolbox_tpu",
@@ -98,7 +98,7 @@ def _parsers(command):
 # flags of the reference parsers that the port leaves out; each is exempt
 # from parity only with a case in test_unported_options_raise below
 UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": (),
-                  "depth": (), "download-weights": ()}
+                  "depth": (), "download-weights": (), "view": ()}
 
 
 @pytest.mark.parametrize("command", sorted(UNPORTED_FLAGS))

@@ -98,6 +98,11 @@ fused = stereo.stereo_step(dataclasses.replace(cfg, fused_anchor_sweep=True),
                            rgb, col, k, torch.eye(4)[None],
                            torch.full((1,), 2.0), torch.ones(1))
 assert fused["image"].shape == (1, 32, 128, 3)
+touchly0 = stereo.stereo_step(
+    dataclasses.replace(cfg, warp_method="forward", touchly0=True), rgb, col,
+    k, torch.eye(4)[None], torch.full((1,), 2.0), torch.ones(1),
+    eq_map=torch.from_numpy(stereo.equirect_maps(32, 64, 75.0)))
+assert touchly0["image"].shape == (1, 32, 192, 3)
 from metric_depth_video_toolbox_tpu_torch.models import da3
 from metric_depth_video_toolbox_tpu_torch.ops import attention_packed
 tiny = dataclasses.replace(da3.DA3_TINY, vit=dataclasses.replace(

@@ -181,15 +181,6 @@ def test_cli_flags_and_defaults_match(kind):
         sorted(map(key, tp._actions), key=str)
 
 
-@pytest.mark.parametrize("flag", ["--vr180", "--touchly0", "--touchly1",
-                                  "--render_as_pointcloud"])
-def test_unported_flags_raise(flag):
-    args = tcli.build_parser().parse_args(
-        ["--depth_video", "x.mkv", "--xfov", "60", flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.run(args, device="cpu")
-
-
 def test_render_stereo_video_file_to_file_matches_jax(tmp_path):
     pytest.importorskip("cv2")
     from metric_depth_video_toolbox_tpu.io import video as jvio
@@ -264,9 +255,3 @@ def test_image_ops_match(name):
     want, got = _image_case(name, np.random.default_rng(6))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
                                rtol=0)
-
-
-def test_render_stereo_video_rejects_unported_paths(tmp_path):
-    with pytest.raises(NotImplementedError, match="A4"):
-        tst.render_stereo_video(str(tmp_path / "x.mkv"), vr180=True,
-                                device="cpu")
