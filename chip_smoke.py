@@ -125,8 +125,9 @@ of which fails the run on error:
                 under torch.profiler: device time, top kernels.
  11. stereo_paths the general stereo renderer and the novel-view render
                 (after the earlier phases' models are freed), file to file
-                through cli/main.py on phase 3's first 16 frames (depth as
-                RGB-encoded FFV1, the colour clip) under a seeded smooth
+                through cli/main.py on phase 3's first 16 frames (depth
+                mapped onto 1..30 m, as RGB-encoded FFV1, the colour clip;
+                the seeded weights' range is a few cm) under a seeded smooth
                 camera path: (a) ``stereo --transformation_file
                 --infill_mask`` (the forward warp's scatter z-buffer and
                 splatted edge anchors), (b) the same with
@@ -143,8 +144,12 @@ of which fails the run on error:
                 (a trace file must appear); each with its wall, frames/s
                 and output size. Then one forward-warp stereo step at batch
                 8 under torch.profiler (device time, busy share, top 5
-                device ops) and on the card and on the CPU for 2 frames
-                (the hole masks must agree on >= 99% of pixels).
+                device ops); the step at 3840x2160 and the CLI's default
+                batch of 16 (its peak memory, bounded by the z-buffer's
+                passes of whole images); and the batch-8 step on the card
+                and on the CPU for 2 frames (the hole masks may disagree on
+                at most 1% of their union, and at most 0.1% of image bytes
+                may differ by more than 1).
 
 It then prints a JSON line of the kernels' launches, times, bounds,
 library times (and kernel / library ratios), registers and spilled bytes,
@@ -2606,6 +2611,8 @@ SP_FRAMES = 16          # the stereo_paths clip: phase 3's first 16 frames
 SP_VR_FRAMES = 8        # (d) VR180 and (e) Touchly0 at the 1920 eye size
 SP_BG_FRAMES = 10       # (f) the save runs to the first downsample
 SP_BATCH = 16           # the stereo CLI's default batch
+SP_NEAR, SP_FAR = 1.0, 30.0     # the clip's depth range, metres
+SP_4K = (2160, 3840)    # the forward step at the default batch: peak memory
 
 
 def camera_path(n, seed=21):
@@ -2629,11 +2636,23 @@ def camera_path(n, seed=21):
     return np.asarray(out, np.float32)
 
 
+def film_depth(metric, near=SP_NEAR, far=SP_FAR):
+    """Depth mapped affinely onto near..far metres, frame order and pixel
+    order kept: phase 3's seeded weights give a range of a few cm, which
+    would collapse the background cloud's voxels."""
+    import numpy as np
+
+    lo, hi = float(metric.min()), float(metric.max())
+    return (near + (far - near) * (metric - lo) / max(hi - lo, 1e-9)
+            ).astype(np.float32)
+
+
 def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
                        card):
     """The general stereo renderer and the novel-view render, file to file
-    through cli/main.py on a 16-frame 1080p clip (phase 3's depth, RGB-
-    encoded FFV1, and its colour clip) with a seeded camera path: (a)
+    through cli/main.py on a 16-frame 1080p clip (phase 3's depth mapped
+    onto 1..30 m, RGB-encoded FFV1, and its colour clip) with a seeded
+    camera path: (a)
     ``stereo --transformation_file --infill_mask`` (forward warp, splat
     anchors), (b) the same with ``--transformation_lock_frame 8
     --render_as_pointcloud``, (c) ``--touchly1 --infill_mask`` (B1 twice a
@@ -2643,8 +2662,11 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
     first downsample) then ``--load_background --infill_mask``, (g) ``view
     --render`` and the same ``--render_as_pointcloud``, (h) (a) with
     ``--profile``. Then one forward-warp stereo step at batch 8 under
-    torch.profiler, and the same step on the card and on the CPU for 2
-    frames: the hole masks must agree on >= 99% of pixels. -> numbers"""
+    torch.profiler; the same step at 4K and the CLI's default batch of 16,
+    whose peak memory the z-buffer's passes bound; and the batch-8 step on
+    the card and on the CPU for 2 frames: the hole masks must disagree on
+    at most 1% of their union, and at most 0.1% of image bytes may differ
+    by more than 1. -> numbers"""
     try:
         import cv2  # noqa: F401 - the commands read and write video files
     except ImportError as e:
@@ -2659,20 +2681,22 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
     from metric_depth_video_toolbox_tpu_torch.io import sidecar
     from metric_depth_video_toolbox_tpu_torch.io import video as vio
     from metric_depth_video_toolbox_tpu_torch.ops import codec
+    from metric_depth_video_toolbox_tpu_torch.ops import rasterize
     from metric_depth_video_toolbox_tpu_torch.ops import voxel
     from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep as ws
     from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
 
     t_phase = time.perf_counter()
     n = SP_FRAMES
-    res = {"runs": {}}
+    metric = film_depth(metric[:n])
+    res = {"runs": {}, "depth_m": [float(metric.min()), float(metric.max())]}
     tfs = camera_path(n)
     with tempfile.TemporaryDirectory() as tmp:
         clip = os.path.join(tmp, "clip.mkv")
         depth = os.path.join(tmp, "clip_depth.mkv")
         mask = os.path.join(tmp, "clip_mask.mkv")
         tf = os.path.join(tmp, "clip_transformations.json")
-        vio.save_depth_video(metric[:n], depth, 24, 100.0)
+        vio.save_depth_video(metric, depth, 24, 100.0)
         vio.save_rgb_video(frames[:n], clip, 24)
         # the subject: a box of a quarter of the frame, moving right by
         # W/64 a frame (a mask of the depth would follow the seeded
@@ -2869,22 +2893,62 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
         ms = e.self_device_time_total / 1e3
         log(f"[stereo_paths]   {ms:9.3f} ms {ms / max(busy, 1e-9):6.1%} "
             f"x{e.count:<5d} {e.key[:100]}")
+
+    # the same step at 4K and the CLI's default batch (16 frames, 32 eyes)
+    h4, w4 = SP_4K
+    del prof, events
+    gen4 = torch.Generator(device=dev).manual_seed(4)
+    d4, c4 = synth_scene(SP_BATCH, gen4, dev, h4, w4)
+    args4 = stereo_inputs(codec.encode_depth_frame(d4, 100.0), c4)
+    args4 = args4[:3] + (torch.as_tensor(tfs[:SP_BATCH], device=dev),) \
+        + args4[4:]
+    del d4, c4
+    cfg4 = stereo.StereoConfig(width=w4, height=h4, make_infill_mask=True,
+                               warp_method="forward")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out4 = stereo.stereo_step(cfg4, *args4)
+    wall4 = time.perf_counter() - t0
+    peak4 = torch.cuda.max_memory_allocated() / 2**30
+    res["forward_step_4k"] = {"wall_s": wall4, "peak_gib": peak4,
+                              "held_before_gib": base_gib}
+    log(f"[stereo_paths] ({card}) forward-warp stereo step, batch "
+        f"{SP_BATCH} at {w4}x{h4} (the CLI's default batch), camera path, "
+        f"infill mask: {wall4:.3f} s (first call), peak {peak4:.2f} GiB "
+        f"({base_gib:.2f} GiB held before it; z-buffer passes of at most "
+        f"{rasterize.ZBUFFER_BYTES / 2**30:.0f} GiB)")
+    if out4["image"].shape != (SP_BATCH, h4, 2 * w4, 3):
+        raise RuntimeError(f"stereo_paths: 4K step image "
+                           f"{out4['image'].shape}")
+    del out4, args4
+
     two = tuple(a[:2] for a in args)
     t0 = time.perf_counter()
     card_out = stereo.stereo_step(cfg, *two)
     cpu_out = stereo.stereo_step(cfg, *(a.cpu() for a in two))
     t_pair = time.perf_counter() - t0
-    differ = float(np.mean(card_out["image"] != cpu_out["image"]))
+    diff = np.abs(card_out["image"].astype(np.int16)
+                  - cpu_out["image"].astype(np.int16))
+    differ, differ_1 = float(np.mean(diff > 0)), float(np.mean(diff > 1))
     holes = [o["infill_mask"].max(-1) > 0 for o in (card_out, cpu_out)]
-    agree = float(np.mean(holes[0] == holes[1]))
-    res["card_vs_cpu"] = {"bytes_differing": differ, "hole_agreement": agree,
+    union = int((holes[0] | holes[1]).sum())
+    off = float((holes[0] != holes[1]).sum() / max(union, 1))
+    res["card_vs_cpu"] = {"bytes_differing": differ,
+                          "bytes_differing_by_more_than_1": differ_1,
+                          "hole_disagreement_of_union": off,
                           "hole_share": float(holes[0].mean())}
     log(f"[stereo_paths] forward step, 2 frames, card vs CPU ({t_pair:.1f} "
-        f"s): {differ:.5%} of image bytes differ, hole masks agree on "
-        f"{agree:.5%} of pixels (hole share {holes[0].mean():.4f})")
-    if agree < 0.99:
-        raise RuntimeError(f"stereo_paths: card and CPU hole masks agree on "
-                           f"{agree:.4%} of pixels (< 99%)")
+        f"s): {differ:.5%} of image bytes differ, {differ_1:.5%} by more "
+        f"than 1; the hole masks disagree on {off:.5%} of their union "
+        f"({union} pixels; hole share {holes[0].mean():.4f})")
+    if not union or off > 0.01 or differ_1 > 0.001:
+        raise RuntimeError(f"stereo_paths: card vs CPU: hole masks disagree "
+                           f"on {off:.4%} of their union of {union} (limit "
+                           f"1%), {differ_1:.4%} of image bytes differ by "
+                           f"more than 1 (limit 0.1%)")
     res["s"] = time.perf_counter() - t_phase
     log(f"[stereo_paths] ({card}) phase: {res['s']:.3f} s")
     return res

@@ -16,9 +16,9 @@ Three warps share one output contract, :class:`WarpResult`:
   the last in the JAX package's candidate order writes the payload (XLA's
   scatter on the CPU writes in order), resolved by a second "amax"
   scatter over candidate positions, so the card, the CPU and the JAX
-  package agree.
-- :func:`plane_sweep_warp`: the gather-only formulation, sweeping depth
-  hypotheses front to back per target pixel.
+  package agree. A batch whose candidates would pass ``ZBUFFER_BYTES``
+  runs in passes of whole images (the images are independent: the same
+  result bit for bit).
 
 Everything carries a leading batch axis (frames x eyes).
 """
@@ -34,6 +34,9 @@ from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
 from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep
 
 INF_DEPTH = 3.0e38
+# the working set of one z-buffer pass: a batch whose candidates need more
+# runs in passes of whole images
+ZBUFFER_BYTES = 4 << 30
 
 
 class WarpResult(NamedTuple):
@@ -335,6 +338,22 @@ def _zbuffer(idx, zc, out_hw, depth_tie_eps):
     return zout, wflat.reshape(b, n)[:, :-1].reshape(b, ht, wt)
 
 
+def _images_per_pass(b, n_cand, n_slots, c):
+    """How many of b images one z-buffer pass takes, each with n_cand
+    candidates of c payload channels and n_slots target pixels: their
+    working set (slot, depth, position and payload per candidate; depth
+    and winner per slot) within ``ZBUFFER_BYTES``, and at least one."""
+    per_image = n_cand * (64 + 8 * c) + n_slots * (16 + 4 * c)
+    return max(1, min(b, ZBUFFER_BYTES // per_image))
+
+
+def _in_passes(fn, step, b, *batched):
+    """fn over the batch in passes of ``step`` images; its outputs (a
+    tuple of tensors with a leading batch axis) concatenated."""
+    parts = [fn(*(a[i:i + step] for a in batched)) for i in range(0, b, step)]
+    return tuple(torch.cat(f, 0) for f in zip(*parts))
+
+
 def _take_payload(payload, winner):
     """payload (B, M, C), winner (B, Ht, Wt) -> (B, Ht, Wt, C), zero where
     no candidate won."""
@@ -363,6 +382,13 @@ def forward_warp(depth, color, k_src, k_dst, transform, out_hw,
     b, h, w = depth.shape
     c = color.shape[-1]
     s = int(subsample)
+    step = _images_per_pass(b, h * w * s * s, ht * wt, c)
+    if step < b:
+        return WarpResult(*_in_passes(
+            lambda *a: forward_warp(*a, out_hw, subsample, remove_edges,
+                                    edge_angle_deg, of_by_one, depth_tie_eps,
+                                    min_depth),
+            step, b, depth, color, k_src, k_dst, transform))
     depth = depth.to(torch.float32)
 
     pts_cam = geo.unproject_depth(depth, k_src, of_by_one=of_by_one)
@@ -414,6 +440,14 @@ def splat_points(points_cam, payload, k, out_hw, radius=0, min_depth=1e-4,
     neighbourhood. Returns (payload image (B, Ht, Wt, C), depth
     (B, Ht, Wt), INF where nothing landed, mask (B, Ht, Wt))."""
     b, n, _ = points_cam.shape
+    n_rep = (2 * radius + 1) ** 2
+    step = _images_per_pass(b, n * n_rep, out_hw[0] * out_hw[1],
+                            payload.shape[-1])
+    if step < b:
+        return _in_passes(
+            lambda *a: splat_points(*a, out_hw, radius, min_depth,
+                                    depth_tie_eps),
+            step, b, points_cam, payload, k)
     uv, z = geo.project_points(points_cam, k)
     ui0 = torch.round(uv[..., 0])
     vi0 = torch.round(uv[..., 1])
@@ -423,124 +457,11 @@ def splat_points(points_cam, payload, k, out_hw, radius=0, min_depth=1e-4,
     idx = torch.cat([_target_slot(torch.stack([ui0 + dx, vi0 + dy], -1), ok,
                                   z, out_hw, min_depth)
                      for dy in offs for dx in offs], 1)
-    n_rep = len(offs) ** 2
     zout, winner = _zbuffer(idx, z.repeat(1, n_rep), out_hw, depth_tie_eps)
     # candidate p is point p mod N of its shifted copy
     img = _take_payload(payload.to(torch.float32),
                         torch.where(winner >= 0, winner % n, -1))
     return img, zout, zout < INF_DEPTH
-
-
-def plane_sweep_warp(depth, color, k_src, k_dst, transform, out_hw,
-                     num_planes=128, remove_edges=True, edge_angle_deg=89.0,
-                     of_by_one=True, min_depth=1e-2, tol_scale=2.0):
-    """Scatter-free re-render of a batch: for every target pixel, sweep
-    depth hypotheses front to back (uniform in inverse depth over each
-    source depth map's range), back-project each into the source camera
-    and accept the first whose bilinearly sampled source depth agrees.
-
-    Arguments as :func:`forward_warp`. Returns a :class:`WarpResult`.
-    """
-    ht, wt = out_hw
-    b, h, w = depth.shape
-    dev = depth.device
-    depth = depth.to(torch.float32)
-
-    edge = (cell_edge_mask(geo.unproject_depth(depth, k_src,
-                                               of_by_one=of_by_one),
-                           edge_angle_deg) if remove_edges else None)
-    valid_src = depth > min_depth
-    inf = torch.full_like(depth, math.inf)
-    z_near = torch.clamp(torch.where(valid_src, depth, inf).amin((1, 2)),
-                         min=min_depth)
-    z_far = torch.maximum(torch.where(valid_src, depth, -inf).amax((1, 2)),
-                          z_near * (1.0 + 1e-3))
-    inv_near = 1.0 / z_near
-    inv_far = 1.0 / z_far
-    d_inv = (inv_near - inv_far) / (num_planes - 1)
-
-    def col(a):                     # (B,) -> (B, 1, 1, 1) over the chunk
-        return a[:, None, None, None]
-    m_inv = torch.linalg.inv(transform)
-    r = m_inv[:, :3, :3]
-    t = m_inv[:, :3, 3]
-    x = ((torch.arange(wt, dtype=torch.float32, device=dev)[None]
-          - k_dst[:, 0, 2, None]) / k_dst[:, 0, 0, None])
-    y = ((torch.arange(ht, dtype=torch.float32, device=dev)[None]
-          - k_dst[:, 1, 2, None]) / k_dst[:, 1, 1, None])
-    dir_x = x[:, None, None, :]     # (B, 1, 1, Wt)
-    dir_y = y[:, None, :, None]     # (B, 1, Ht, 1)
-    fx_s, fy_s = col(k_src[:, 0, 0]), col(k_src[:, 1, 1])
-    cx_s, cy_s = col(k_src[:, 0, 2]), col(k_src[:, 1, 2])
-    # the source grid was built with the of_by_one stretch: invert it when
-    # mapping back to source pixel indices
-    sx = (w / (w + 1.0)) if of_by_one else 1.0
-    sy = (h / (h + 1.0)) if of_by_one else 1.0
-    edge_f = edge.to(torch.float32) if edge is not None else None
-
-    # chunks of 16 planes (the last chunk padded past num_planes, as in
-    # the JAX package's scan)
-    chunk = min(16, num_planes)
-    n_chunks = -(-num_planes // chunk)
-    plane_ids = torch.arange(n_chunks * chunk, dtype=torch.float32,
-                             device=dev).reshape(n_chunks, chunk)
-    found = torch.zeros((b, ht, wt), dtype=torch.bool, device=dev)
-    best_z = torch.full((b, ht, wt), INF_DEPTH, dtype=torch.float32,
-                        device=dev)
-    best_u = torch.zeros((b, ht, wt), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((b, ht, wt), dtype=torch.float32, device=dev)
-    for ids in plane_ids:
-        inv_z = inv_near[:, None] - d_inv[:, None] * ids[None]
-        z_t = (1.0 / inv_z)[:, :, None, None]            # (B, C, 1, 1)
-        px = dir_x * z_t
-        py = dir_y * z_t
-
-        def row(i):
-            return (col(r[:, i, 0]) * px + col(r[:, i, 1]) * py
-                    + col(r[:, i, 2]) * z_t + col(t[:, i]))
-        sx_c, sy_c, sz_c = row(0), row(1), row(2)
-        behind = sz_c <= min_depth
-        zs = torch.where(behind, torch.ones_like(sz_c), sz_c)
-        u_s = (sx_c / zs * fx_s + cx_s) * sx
-        v_s = (sy_c / zs * fy_s + cy_s) * sy
-        d_s = _bilinear_gather(depth, u_s, v_s, fill=-1.0)
-        tol = tol_scale * sz_c * sz_c * col(d_inv) + 1e-4
-        ok = (~behind) & (d_s > min_depth) & (torch.abs(d_s - sz_c) < tol)
-        if edge_f is not None:
-            ok = ok & (_bilinear_gather(edge_f, u_s, v_s, fill=1.0) < 0.25)
-        hit = ok.any(dim=1)
-        # the first consistent plane of the chunk (argmax returns the
-        # first maximum)
-        first = ok.to(torch.uint8).argmax(dim=1, keepdim=True)
-
-        def pick(field):
-            return torch.gather(field.expand(b, chunk, ht, wt), 1,
-                                first)[:, 0]
-        newly = hit & ~found
-        best_z = torch.where(newly, pick(sz_c), best_z)
-        best_u = torch.where(newly, pick(u_s), best_u)
-        best_v = torch.where(newly, pick(v_s), best_v)
-        found = found | hit
-
-    out_color = _bilinear_gather(color.to(torch.float32), best_u, best_v,
-                                 fill=0.0)
-    out_color = torch.where(found[..., None], out_color,
-                            torch.zeros_like(out_color))
-    # refine past the plane quantization: the matched source pixel's own
-    # depth, unprojected and carried through the forward transform
-    d_hit = _bilinear_gather(depth, best_u, best_v, fill=0.0)
-    sxp = (best_u / sx - cx_s[..., 0]) / fx_s[..., 0] * d_hit
-    syp = (best_v / sy - cy_s[..., 0]) / fy_s[..., 0] * d_hit
-    rf = transform[:, None, None, 2, :]
-    z_ref = (rf[..., 0] * sxp + rf[..., 1] * syp + rf[..., 2] * d_hit
-             + rf[..., 3])
-    out_depth = torch.where(found & (d_hit > min_depth), z_ref,
-                            torch.where(found, best_z,
-                                        torch.full_like(best_z, INF_DEPTH)))
-    edge_out = (edge & valid_src) if edge is not None else \
-        torch.zeros((b, h, w), dtype=torch.bool, device=dev)
-    return WarpResult(color=out_color, depth=out_depth, mask=found,
-                      edge_mask=edge_out)
 
 
 def warp_pixel_ids(depth, k_src, k_dst, transform, out_hw, subsample=1,

@@ -10,22 +10,12 @@ import numpy as np
 def voxel_downsample(points, colors=None, voxel_size=0.01):
     """Average the points (and colors) within each voxel of an axis-aligned
     grid of ``voxel_size``; voxels in lexicographic order of their
-    integer coordinates, as the JAX package's ``np.unique(axis=0)`` gives
-    them, and each sum accumulated in point order: the same output."""
+    integer coordinates, each sum accumulated in point order."""
     pts = np.asarray(points, np.float32).reshape(-1, 3)
     keys = np.floor(pts / voxel_size).astype(np.int64)
     if not len(keys):
         return pts, colors
-    lo = keys.min(0)
-    span = [int(h) - int(low) + 1 for h, low in zip(keys.max(0), lo)]
-    if span[0] * span[1] * span[2] < 2 ** 62:
-        # one int64 per voxel, monotone in the lexicographic order: a 1-D
-        # unique (a sort) instead of a sort of rows, 10x faster
-        k = keys - lo
-        _, inverse = np.unique((k[:, 0] * span[1] + k[:, 1]) * span[2]
-                               + k[:, 2], return_inverse=True)
-    else:
-        _, inverse = np.unique(keys, axis=0, return_inverse=True)
+    _, inverse = np.unique(keys, axis=0, return_inverse=True)
     inverse = inverse.reshape(-1)
     n = int(inverse.max()) + 1
     counts = np.bincount(inverse, minlength=n)

@@ -55,13 +55,12 @@ class StereoConfig:
     touchly1: bool = False
     touchly_max_depth: float = 5.0
     touchly_min_depth: float = 0.0
-    vr180: bool = False
     # samples per grid cell side of the forward warp (1 = points)
     subsample: int = 2
     inpaint_iters: int = 48
     # 'sweep' = the disparity sweep (valid when the only transform is the
     # stereo eye shift [+ toe-in]); 'forward' = the scatter z-buffer (any
-    # transform and render camera); 'plane_sweep' = the gather sweep
+    # transform and render camera)
     warp_method: str = "sweep"
     num_planes: int = 128
     has_convergence: bool = True
@@ -177,11 +176,6 @@ def render_eye(depth, color, k, render_k, transform, eye_shift_m, conv_angle,
             depth, color, k, m_sweep, num_planes=cfg.num_planes,
             remove_edges=cfg.remove_edges, neutralize_rotation=rotate_conv,
             conv_inv_z=sweep_conv, edge=edge_pre)
-    elif cfg.warp_method == "plane_sweep":
-        res = rasterize.plane_sweep_warp(
-            depth, color, k, render_k, m_eye, out_hw,
-            num_planes=cfg.num_planes, remove_edges=cfg.remove_edges,
-            of_by_one=True)
     else:
         res = rasterize.forward_warp(
             depth, color, k, render_k, m_eye, out_hw,
@@ -455,7 +449,7 @@ def render_stereo_video(depth_video, color_video=None, output=None,
         green_and_black_infill_mask=green_and_black_infill_mask,
         do_basic_infill=do_basic_infill, touchly0=touchly0,
         touchly1=touchly1, touchly_max_depth=touchly_max_depth,
-        touchly_min_depth=touchly_min_depth, vr180=vr180,
+        touchly_min_depth=touchly_min_depth,
         warp_method=warp_method, num_planes=num_planes,
         subsample=1 if render_as_pointcloud else StereoConfig.subsample,
         has_convergence=convergence_depths is not None,

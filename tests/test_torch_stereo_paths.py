@@ -1,5 +1,5 @@
 """The general stereo renderer against the JAX package: ``stereo_frame``
-under the forward warp, the plane sweep, Touchly0 and Touchly1 (op by op),
+under the forward warp, Touchly0 and Touchly1 (op by op),
 and ``render_stereo_video`` file to file under a camera path with a lock
 frame, ``render_as_pointcloud``, Touchly0, Touchly1, VR180 and the
 background mode (the JAX step jitted).
@@ -8,10 +8,7 @@ Budgets, uint8 bytes of the image and infill-mask outputs:
 - op by op, the forward warp is bit-exact (``tests/test_torch_rasterize.py``)
   and so are these steps but for the infill-mask normals' filters and
   ``x * 255`` truncation: at most 1 LSB on at most 0.5% of bytes, as the
-  sweep path's budget (``tests/test_torch_stereo.py``); the plane sweep's
-  JAX loop is compiled (``lax.scan``), so its image may differ by more
-  where a fused rounding moves a bilinear tap: bytes off by more than 1 on
-  at most 0.5%, the hit mask equal;
+  sweep path's budget (``tests/test_torch_stereo.py``);
 - file to file against the jitted JAX step, where XLA's fused rounding may
   move a landing pixel of the forward warp: at most 1% of bytes differing,
   at most 0.1% by more than 1, and the hole masks (any nonzero infill-mask
@@ -75,7 +72,6 @@ FRAME_MODES = {
     "forward": ({"warp_method": "forward"}, None),
     "forward_render_camera": ({"warp_method": "forward", "subsample": 1},
                               (40, 56)),
-    "plane_sweep": ({"warp_method": "plane_sweep", "num_planes": 32}, None),
     "touchly0": ({"warp_method": "forward", "touchly0": True}, (40, 40)),
     "touchly1": ({"touchly1": True, "num_planes": 32}, None),
 }
@@ -109,10 +105,7 @@ def test_stereo_frame_matches_jax(mode):
                            torch.ones(b), tst.StereoConfig(**common))
     for key in ("image", "infill_mask"):
         share, big = diff(got[key].numpy(), np.asarray(want[key]))
-        if mode == "plane_sweep":
-            assert big <= 0.005, (key, big)
-        else:
-            assert share <= 0.005 and big == 0, (key, share, big)
+        assert share <= 0.005 and big == 0, (key, share, big)
     hole = got["infill_mask"].numpy().max(-1) > 0
     assert 0 < hole.mean() < 0.3
     for key in ("depth_left", "depth_right"):
