@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--baseline-csrc DIR]
+    python3 chip_smoke.py [--baseline-csrc DIR] [--only single_frame]
 
 Run from the repository root on a machine with a CUDA card. Phases, each
 of which fails the run on error:
@@ -150,6 +150,29 @@ of which fails the run on error:
                 and on the CPU for 2 frames (the hole masks may disagree on
                 at most 1% of their union, and at most 0.1% of image bytes
                 may differ by more than 1).
+ 12. single_frame the single-frame engines (after the earlier phases'
+                models are freed), file to file through cli/main.py on
+                phase 3's first 16 frames: (a) ``engine moge``, ``unik3d``,
+                ``unidepth --xfov 60`` and ``depthpro`` at their _L presets
+                with ``--checkpoint`` on a file converted from a seeded
+                upstream-layout state dict (the layouts of moge_shapes,
+                unidepth_shapes, depthpro_hf_shapes; the ViT's position
+                embedding at the 1080p working grid), each with its wall,
+                frames/s, peak memory, xfovs range and one batch under
+                torch.profiler (counts zeroed before, read after: no
+                launch, the attention is SDPA); (b) the stand-ins at the
+                CLI's defaults (vits, no checkpoint) for moge, unik3d and
+                depthpro; (c) MoGe-L with attention_impl="flash_packed":
+                counts zeroed before, read after (24 packed-attention
+                launches for the batch of 16 at 37 x 66 + 1 tokens), the
+                first launch held against the plain version and timed
+                beside its bound and SDPA on the real tokens, the raw point
+                map held against the SDPA route's (SF_ROUTE_MAX /
+                SF_ROUTE_MEAN); (d) ``engine videoanythingmetric`` bit-equal
+                to ``depth --profile DIR`` (a trace file must appear); (e)
+                ``split-sbs`` on phase 4's SBS frames (halves bit-equal) and
+                ``inpaint`` on the clip; (f) the movie's two-pass step 2
+                with the moge stand-in on a 40-frame scene (one locked FOV).
 
 It then prints a JSON line of the kernels' launches, times, bounds,
 library times (and kernel / library ratios), registers and spilled bytes,
@@ -2105,6 +2128,18 @@ CKPT_WAN_CUTOFF_S = 600.0
 CHUNK_TEST_ELEMENTS = 2 ** 28 + 4097   # one float32 leaf over 2^30 bytes
 
 
+def block_shapes(b, d):
+    """{name: shape} of one upstream DINOv2 block of width d, prefix b."""
+    return {b + "norm1.weight": (d,), b + "norm1.bias": (d,),
+            b + "attn.qkv.weight": (3 * d, d), b + "attn.qkv.bias": (3 * d,),
+            b + "attn.proj.weight": (d, d), b + "attn.proj.bias": (d,),
+            b + "ls1.gamma": (d,), b + "norm2.weight": (d,),
+            b + "norm2.bias": (d,), b + "mlp.fc1.weight": (4 * d, d),
+            b + "mlp.fc1.bias": (4 * d,),
+            b + "mlp.fc2.weight": (d, 4 * d), b + "mlp.fc2.bias": (d,),
+            b + "ls2.gamma": (d,)}
+
+
 def dinov2_shapes(prefix, d, depth, n_tokens, patch=14):
     """{name: shape} of an upstream DINOv2 state dict."""
     s = {f"{prefix}patch_embed.proj.weight": (d, 3, patch, patch),
@@ -2113,16 +2148,165 @@ def dinov2_shapes(prefix, d, depth, n_tokens, patch=14):
          f"{prefix}pos_embed": (1, n_tokens + 1, d),
          f"{prefix}norm.weight": (d,), f"{prefix}norm.bias": (d,)}
     for i in range(depth):
-        b = f"{prefix}blocks.{i}."
-        s.update({b + "norm1.weight": (d,), b + "norm1.bias": (d,),
-                  b + "attn.qkv.weight": (3 * d, d),
-                  b + "attn.qkv.bias": (3 * d,),
-                  b + "attn.proj.weight": (d, d), b + "attn.proj.bias": (d,),
-                  b + "ls1.gamma": (d,), b + "norm2.weight": (d,),
-                  b + "norm2.bias": (d,), b + "mlp.fc1.weight": (4 * d, d),
-                  b + "mlp.fc1.bias": (4 * d,),
-                  b + "mlp.fc2.weight": (d, 4 * d), b + "mlp.fc2.bias": (d,),
-                  b + "ls2.gamma": (d,)})
+        s.update(block_shapes(f"{prefix}blocks.{i}.", d))
+    return s
+
+
+def _layer(s, name, out_ch, in_ch, k=None, bias=True, transpose=False):
+    """A Linear (k None), Conv2d or ConvTranspose2d's weight (and bias)."""
+    shape = (out_ch, in_ch) if k is None else (
+        (in_ch, out_ch, k, k) if transpose else (out_ch, in_ch, k, k))
+    s[name + ".weight"] = shape
+    if bias:
+        s[name + ".bias"] = (out_ch,)
+
+
+def moge_shapes(cfg, n_tokens):
+    """{name: shape} of an upstream MoGe state dict (the layout of
+    models.convert.convert_moge) at a grid of n_tokens patches."""
+    v = cfg.vit
+    s = dinov2_shapes("backbone.", v.embed_dim, v.depth, n_tokens,
+                      v.patch_size)
+    for i in range(4):
+        _layer(s, f"head.projects.{i}", cfg.dim_proj, v.embed_dim, 1)
+    cin = cfg.dim_proj
+    for i, ch in enumerate(cfg.dim_upsample):
+        ub = f"head.upsample_blocks.{i}"
+        _layer(s, ub + ".0", ch, cin + 2, 2, transpose=True)
+        _layer(s, ub + ".1", ch, ch, 3)
+        for j in range(cfg.num_res_blocks):
+            rb = f"{ub}.{2 + j}"
+            for n in ("norm1", "norm2"):
+                s[f"{rb}.{n}.weight"] = s[f"{rb}.{n}.bias"] = (ch,)
+            _layer(s, rb + ".conv1", ch, ch, 3)
+            _layer(s, rb + ".conv2", ch, ch, 3)
+        cin = ch
+    _layer(s, "head.output_block.0", cfg.last_conv_channels, cin + 2, 3)
+    _layer(s, "head.output_block.2", cfg.n_out, cfg.last_conv_channels, 1)
+    return s
+
+
+def _token_decoder_shapes(s, prefix, cfg, num_blocks, with_rays):
+    for i in range(4):
+        _layer(s, f"{prefix}projects.{i}", cfg.dim, cfg.vit.embed_dim)
+    if with_rays:
+        _layer(s, prefix + "ray_mlp1", cfg.dim, (cfg.sh_degree + 1) ** 2)
+        _layer(s, prefix + "ray_mlp2", cfg.dim, cfg.dim)
+    for i in range(num_blocks):
+        s.update(block_shapes(f"{prefix}blocks.{i}.", cfg.dim))
+
+
+def _pixel_head_shapes(s, prefix, cfg):
+    cin = cfg.dim
+    for i, ch in enumerate(cfg.dim_upsample):
+        _layer(s, f"{prefix}upsample{i}", ch, cin, 2, transpose=True)
+        _layer(s, f"{prefix}upconv{i}", ch, ch, 3)
+        cin = ch
+    _layer(s, prefix + "out_conv1", cfg.last_conv_channels, cin, 3)
+    _layer(s, prefix + "out_conv2", 2, cfg.last_conv_channels, 1)
+
+
+def unidepth_shapes(cfg, n_tokens, kind="unidepth"):
+    """{name: shape} of an upstream UniDepth-V2 (kind "unidepth") or
+    UniK3D ("unik3d") state dict (the layouts of convert_unidepth /
+    convert_unik3d) at a grid of n_tokens patches."""
+    v = cfg.vit
+    s = dinov2_shapes("backbone.", v.embed_dim, v.depth, n_tokens,
+                      v.patch_size)
+    if kind == "unik3d":
+        _token_decoder_shapes(s, "angular.", cfg, cfg.num_angular_blocks,
+                              False)
+        _layer(s, "angular.out", 3, cfg.dim)
+        _token_decoder_shapes(s, "radius.", cfg, cfg.num_blocks, True)
+        _pixel_head_shapes(s, "radius.", cfg)
+        return s
+    _layer(s, "camera.in_proj", cfg.dim, v.embed_dim)
+    s["camera.queries"] = (cfg.num_cam_queries, cfg.dim)
+    for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _layer(s, "camera." + n, cfg.dim, cfg.dim)
+    _layer(s, "camera.mlp1", cfg.camera_hidden,
+           cfg.num_cam_queries * cfg.dim)
+    _layer(s, "camera.mlp2", 4, cfg.camera_hidden)
+    _token_decoder_shapes(s, "depth.", cfg, cfg.num_blocks, True)
+    _pixel_head_shapes(s, "depth.", cfg)
+    return s
+
+
+def dinov2_hf_shapes(prefix, d, depth, n_tokens, patch):
+    """{name: shape} of an HF transformers Dinov2Model state dict."""
+    e = prefix + "embeddings."
+    s = {e + "cls_token": (1, 1, d), e + "mask_token": (1, d),
+         e + "position_embeddings": (1, n_tokens + 1, d),
+         e + "patch_embeddings.projection.weight": (d, 3, patch, patch),
+         e + "patch_embeddings.projection.bias": (d,),
+         prefix + "layernorm.weight": (d,), prefix + "layernorm.bias": (d,)}
+    for i in range(depth):
+        b = f"{prefix}encoder.layer.{i}."
+        for n in ("norm1", "norm2"):
+            s[f"{b}{n}.weight"] = s[f"{b}{n}.bias"] = (d,)
+        for n in ("query", "key", "value"):
+            _layer(s, f"{b}attention.attention.{n}", d, d)
+        _layer(s, b + "attention.output.dense", d, d)
+        s[b + "layer_scale1.lambda1"] = s[b + "layer_scale2.lambda1"] = (d,)
+        _layer(s, b + "mlp.fc1", 4 * d, d)
+        _layer(s, b + "mlp.fc2", d, 4 * d)
+    return s
+
+
+def depthpro_hf_shapes(cfg):
+    """{name: shape} of an HF DepthProForDepthEstimation state dict (the
+    layout of convert_depthpro_hf; apple/DepthPro-hf at DEPTHPRO_L)."""
+    v = cfg.vit
+    d, fh = v.embed_dim, cfg.fusion_hidden_size
+    n = cfg.out_size ** 2
+    s = {}
+    for enc in ("depth_pro.encoder.patch_encoder.model.",
+                "depth_pro.encoder.image_encoder.model.",
+                "fov_model.fov_encoder.model."):
+        s.update(dinov2_hf_shapes(enc, d, v.depth, n, v.patch_size))
+    up = "depth_pro.neck.feature_upsample."
+    sd, idims = cfg.scaled_images_feature_dims, cfg.intermediate_feature_dims
+    _layer(s, up + "image_block.layers.0", sd[0], d, 2, transpose=True)
+    for i, dim in enumerate(sd):
+        b = f"{up}scaled_images.{i}.layers"
+        _layer(s, b + ".0", dim, d, 1, bias=False)
+        _layer(s, b + ".1", dim, dim, 2, bias=False, transpose=True)
+    for i, dim in enumerate(idims):
+        b = f"{up}intermediate.{i}.layers"
+        ch = fh if i == 0 else dim
+        _layer(s, b + ".0", ch, d, 1, bias=False)
+        for j in range(2 + i):
+            _layer(s, f"{b}.{j + 1}", dim, ch if j == 0 else dim, 2,
+                   bias=False, transpose=True)
+    _layer(s, "depth_pro.neck.fuse_image_with_low_res", sd[0], 2 * sd[0], 1)
+    dims = list(sd) + list(idims)
+    for i, dim in enumerate(dims):
+        if not (i == len(dims) - 1 and dim == fh):
+            _layer(s, f"depth_pro.neck.feature_projection.projections.{i}",
+                   fh, dim, 3, bias=False)
+    for i in range(len(dims)):
+        fl = (f"fusion_stage.intermediate.{i}" if i < len(dims) - 1
+              else "fusion_stage.final")
+        for r in ("residual_layer1", "residual_layer2"):
+            for c in ("convolution1", "convolution2"):
+                _layer(s, f"{fl}.{r}.{c}", fh, fh, 3)
+        if i < len(dims) - 1:
+            _layer(s, fl + ".deconv", fh, fh, 2, bias=False, transpose=True)
+        _layer(s, fl + ".projection", fh, fh, 1)
+    _layer(s, "head.layers.0", fh // 2, fh, 3)
+    _layer(s, "head.layers.1", fh // 2, fh // 2, 2, transpose=True)
+    _layer(s, "head.layers.2", 32, fh // 2, 3)
+    _layer(s, "head.layers.4", 1, 32, 1)
+    _layer(s, "fov_model.fov_encoder.neck", fh // 2, d)
+    _layer(s, "fov_model.conv", fh // 2, fh, 3)
+    ch = fh // 2
+    for i in range(cfg.num_fov_head_layers):
+        out = -(-fh // 2 ** (i + 2))
+        _layer(s, f"fov_model.head.layers.{2 * i}", out, ch, 3)
+        ch = out
+    fk = int((cfg.out_size - 1) / 2 ** cfg.num_fov_head_layers + 1)
+    _layer(s, f"fov_model.head.layers.{2 * cfg.num_fov_head_layers}", 1, ch,
+           fk)
     return s
 
 
@@ -2954,6 +3138,465 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
     return res
 
 
+# ------------------------------------------------ phase: single_frame ----
+
+SF_FRAMES = 16          # phase 3's first 16 frames: one batch of 16
+SF_MOVIE_FRAMES = 40    # (f): the movie's step 2 on one 40-frame scene
+SF_SEED = 12
+# MoGe-L through B4 against the same weights through SDPA, both bfloat16:
+# largest and mean absolute difference of the raw point map (before the
+# focal solve) as a share of its largest magnitude; the DA3 bounds
+SF_ROUTE_MAX, SF_ROUTE_MEAN = DA3_ROUTE_MAX, DA3_ROUTE_MEAN
+
+
+def profile_batch(tag, eng, frames, card):
+    """One batch of ``eng`` timed unprofiled, then under torch.profiler:
+    -> {wall_ms, device_ms, busy, top}; logs the top 5 device ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.infer_video(frames)
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.infer_video(frames)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:5]
+    log(f"[single_frame] ({card}) {tag}: one batch of {len(frames)} frames "
+        f"{wall:.3f} ms unprofiled, device busy {busy:.3f} ms "
+        f"({busy / wall:.1%}); top device operations:")
+    for e in top:
+        ms = e.self_device_time_total / 1e3
+        log(f"[single_frame]   {ms:9.3f} ms {ms / max(busy, 1e-9):6.1%} "
+            f"x{e.count:<5d} {e.key[:100]}")
+    return {"wall_ms": wall, "device_ms": busy, "busy": busy / wall,
+            "top": [[e.key[:100], e.self_device_time_total / 1e3]
+                    for e in top]}
+
+
+def check_depth_file(tag, path, n, max_depth=100.0, constant=False):
+    """The depth video's frames, shape and range (not one value unless
+    ``constant`` may be: a seeded stand-in's point map may face away from
+    the camera everywhere) -> (T, H, W) depth."""
+    import numpy as np
+
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+
+    with vio.DepthVideoReader(path, max_depth) as r:
+        depth = r.read_depth_batch(1 << 30)
+    if depth.shape != (n, H, W) or not np.isfinite(depth).all() \
+            or depth.min() < 0 or depth.max() > max_depth \
+            or (depth.max() == depth.min() and not constant):
+        raise RuntimeError(f"single_frame {tag}: depth {depth.shape}, "
+                           f"{depth.min()}..{depth.max()}")
+    return depth
+
+
+def check_xfovs(tag, path, n):
+    """The ``_xfovs.json`` sidecar: n finite FOVs in (0, 180] (seeded
+    weights' point maps reproject onto nothing, and their focal solve may
+    end at f -> 0, 180 degrees) -> range."""
+    import numpy as np
+
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+
+    x = sidecar.load_xfovs(path)
+    if x.shape != (n,) or not np.isfinite(x).all() or not (
+            (x > 0) & (x <= 180)).all():
+        raise RuntimeError(f"single_frame {tag}: xfovs {x}")
+    return [float(x.min()), float(x.max())]
+
+
+def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
+                       card):
+    """The single-frame engines (after the earlier phases' models are
+    freed), file to file through cli/main.py on phase 3's first 16 1080p
+    frames: (a) ``engine moge``, ``unik3d``, ``unidepth --xfov 60`` and
+    ``depthpro`` at their _L presets with ``--checkpoint`` on a file
+    converted from a seeded upstream-layout state dict (each: wall,
+    frames/s, peak memory, the xfovs range, one batch under torch.profiler;
+    no kernel of the repo: SDPA); (b) the stand-ins at the CLI's defaults
+    (vits, no checkpoint) for moge, unik3d and depthpro; (c) MoGe-L with
+    ``attention_impl="flash_packed"`` (B4: 24 launches a batch of 16, the
+    first held against the plain version and timed beside SDPA on the real
+    tokens; the raw point map held against the SDPA route); (d) ``engine
+    videoanythingmetric`` bit-equal to ``depth --profile DIR`` with the
+    same flags, and a trace in DIR; (e) ``split-sbs`` on phase 4's SBS
+    frames and ``inpaint`` on the clip; (f) the movie's two-pass step 2
+    with ``engine="moge"`` (the stand-in) on one 40-frame scene. -> numbers
+    """
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("single_frame: OpenCV (cv2) is not installed; "
+                           "the commands read and write video files") from e
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.models import convert
+    from metric_depth_video_toolbox_tpu_torch.models import depth_anything
+    from metric_depth_video_toolbox_tpu_torch.models import depthpro
+    from metric_depth_video_toolbox_tpu_torch.models import moge
+    from metric_depth_video_toolbox_tpu_torch.models import unidepth
+    from metric_depth_video_toolbox_tpu_torch.ops import \
+        attention_packed as apk
+    from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
+    from metric_depth_video_toolbox_tpu_torch.pipeline import movie
+
+    t_phase = time.perf_counter()
+    n = SF_FRAMES
+    clip16 = frames[:n]
+    work = depth_anything.working_resolution(H, W, 518, 14)
+    n_tok = (work[0] // 14) * (work[1] // 14)
+    gen = torch.Generator(device=dev).manual_seed(SF_SEED)
+    res = {"real": {}, "stand_in": {}}
+
+    # the engine a command builds, kept for its profile
+    built = []
+    make = dstage._ENGINE_CLASSES["single_frame"]
+
+    def keep(**kw):
+        built.append(make(**kw))
+        return built[-1]
+    dstage._ENGINE_CLASSES["single_frame"] = keep
+
+    def command(tag, argv):
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"single_frame {tag}", {}, "SDPA attention: no "
+                      "kernel of the repo")
+        return wall, torch.cuda.max_memory_allocated() / 2**30
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = os.path.join(tmp, "clip.mkv")
+            vio.save_rgb_video(clip16, clip, 24)
+
+            # (a) the real graphs from converted files
+            real = (("moge", "moge", moge.MOGE_L,
+                     moge_shapes(moge.MOGE_L, n_tok), []),
+                    ("unik3d", "unik3d", unidepth.UNIDEPTH_L,
+                     unidepth_shapes(unidepth.UNIDEPTH_L, n_tok, "unik3d"),
+                     []),
+                    ("unidepth", "unidepth", unidepth.UNIDEPTH_L,
+                     unidepth_shapes(unidepth.UNIDEPTH_L, n_tok),
+                     ["--xfov", "60"]),
+                    ("depthpro", "depthpro_hf", depthpro.DEPTHPRO_L,
+                     depthpro_hf_shapes(depthpro.DEPTHPRO_L), []))
+            moge_tree = None
+            for name, kind, cfg, shapes, extra in real:
+                t0 = time.perf_counter()
+                pth = os.path.join(tmp, f"{name}.pth")
+                sd = upstream_state_dict(shapes, gen, dev)
+                if kind == "depthpro_hf":
+                    # seeded heads put the canonical inverse depth and the
+                    # FOV near 0: the ReLU and the FOV scale would leave no
+                    # depth; their last biases at a trained model's scale
+                    sd["head.layers.4.bias"].fill_(1.0)
+                    sd[f"fov_model.head.layers.{2 * cfg.num_fov_head_layers}"
+                       ".bias"].fill_(60.0)
+                elif kind == "unik3d":
+                    # the ray field's bias forward, as the JAX package's
+                    # init sets it: seeded rays may all face backwards
+                    sd["angular.out.bias"] = torch.tensor([0.0, 0.0, 1.0])
+                n_params = sum(v.numel() for v in sd.values())
+                torch.save(sd, pth)
+                del sd
+                tree = convert.convert_torch_file(pth, kind, cfg)
+                os.remove(pth)
+                ckpt = os.path.join(tmp, f"{name}.msgpack")
+                convert.save_checkpoint(ckpt, tree)
+                conv_s = time.perf_counter() - t0
+                if name == "moge":
+                    moge_tree = tree
+                del tree
+                built.clear()
+                wall, peak = command(f"(a) {name}", [
+                    "engine", name, "--color_video", clip, "--checkpoint",
+                    ckpt, "--model_size", "vitl", *extra])
+                eng = built[0]
+                if eng.graph is None or eng.graph[0] != name:
+                    raise RuntimeError(f"single_frame (a) {name}: the "
+                                       f"engine ran {eng.graph}, not the "
+                                       f"real graph")
+                out = clip + "_depth.mkv"
+                depth = check_depth_file(f"(a) {name}", out, n)
+                r = {"params_m": n_params / 1e6,
+                     "file_gib": os.path.getsize(ckpt) / 2**30,
+                     "convert_write_s": conv_s, "wall_s": wall,
+                     "fps": n / wall, "peak_gib": peak,
+                     "depth_m": [float(depth.min()), float(depth.max())]}
+                if os.path.exists(out + "_xfovs.json"):
+                    r["xfovs"] = check_xfovs(f"(a) {name}",
+                                             out + "_xfovs.json", n)
+                    os.remove(out + "_xfovs.json")
+                os.remove(out)
+                os.remove(ckpt)
+                log(f"[single_frame] ({card}) (a) engine {name} "
+                    f"--checkpoint ({r['params_m']:.1f} M parameters, "
+                    f"{r['file_gib']:.2f} GiB file, seeded, converted and "
+                    f"written in {conv_s:.3f} s): {wall:.3f} s, "
+                    f"{r['fps']:.3f} frames/s, peak {peak:.2f} GiB, depth "
+                    f"{r['depth_m'][0]:.3f}..{r['depth_m'][1]:.3f} m, xfovs "
+                    f"{r.get('xfovs', 'none (not written)')}")
+                r["profile"] = profile_batch(f"(a) {name}", eng, clip16,
+                                             card)
+                res["real"][name] = r
+                del eng, depth
+                built.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+
+            # (b) the stand-ins at the CLI's defaults
+            for name in ("moge", "unik3d", "depthpro"):
+                wall, peak = command(f"(b) {name}", [
+                    "engine", name, "--color_video", clip])
+                if built[-1].graph is not None:
+                    raise RuntimeError(f"single_frame (b) {name}: a real "
+                                       f"graph without a checkpoint")
+                out = clip + "_depth.mkv"
+                depth = check_depth_file(f"(b) {name}", out, n,
+                                         constant=True)
+                xf = check_xfovs(f"(b) {name}", out + "_xfovs.json", n)
+                os.remove(out)
+                os.remove(out + "_xfovs.json")
+                res["stand_in"][name] = {
+                    "wall_s": wall, "fps": n / wall, "peak_gib": peak,
+                    "xfovs": xf,
+                    "depth_m": [float(depth.min()), float(depth.max())]}
+                log(f"[single_frame] ({card}) (b) engine {name} (stand-in, "
+                    f"vits 518): {wall:.3f} s, {n / wall:.3f} frames/s, "
+                    f"peak {peak:.2f} GiB, depth {depth.min():.3f}.."
+                    f"{depth.max():.3f} m, xfovs {xf}")
+                del depth
+                built.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (c) MoGe-L through B4: its launches, its first launch against
+            # the plain version, the raw point map against the SDPA route
+            b4cfg = dataclasses.replace(moge.MOGE_L, vit=dataclasses.replace(
+                moge.MOGE_L.vit, attention_impl="flash_packed"))
+            engines = {impl: dstage.SingleFrameEngine(
+                size="vitl", params=moge_tree, variant="moge",
+                moge_cfg=c, device=dev)
+                for impl, c in (("flash_packed", b4cfg),
+                                ("sdpa", moge.MOGE_L))}
+            del moge_tree
+            engines["flash_packed"].infer_video(clip16[:2])     # warm-up
+            launch = apk.packed_flash_attention
+            held = []
+
+            def first(*args):
+                if not held:
+                    held.append(tuple(a.clone() if torch.is_tensor(a)
+                                      else a for a in args))
+                return launch(*args)
+            apk.packed_flash_attention = first
+            try:
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                d_b4 = engines["flash_packed"].infer_video(clip16)
+                b4_wall = time.perf_counter() - t0
+            finally:
+                apk.packed_flash_attention = launch
+            blocks = moge.MOGE_L.vit.depth
+            b4_launches = counts()["packed_flash_attention"]
+            expect_counts("single_frame (c) MoGe-L flash_packed",
+                          {"packed_flash_attention": blocks},
+                          f"1 batch of {n} frames x {blocks} blocks")
+            x = dstage._resize_frames(torch.as_tensor(clip16, device=dev),
+                                      work)
+            with torch.no_grad():
+                raw = {impl: eng.model(work)(x)[0].float()
+                       for impl, eng in engines.items()}
+            diff = (raw["flash_packed"] - raw["sdpa"]).abs()
+            scale = float(raw["sdpa"].abs().max())
+            route = {"max": float(diff.max()) / scale,
+                     "mean": float(diff.mean()) / scale}
+            d_sdpa = engines["sdpa"].infer_video(clip16)
+            del raw, diff, x
+            engines.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not (route["max"] <= SF_ROUTE_MAX
+                    and route["mean"] <= SF_ROUTE_MEAN):
+                raise RuntimeError(f"single_frame (c): B4 vs SDPA point "
+                                   f"map {route} (limits {SF_ROUTE_MAX}, "
+                                   f"{SF_ROUTE_MEAN})")
+            qkv4, valid, heads, sm = held[0]
+            out = apk.packed_flash_attention(qkv4, valid, heads, sm)
+            ref = apk.packed_flash_attention_plain(qkv4.float(), valid,
+                                                   heads, sm)
+            torch.cuda.synchronize()
+            kb = {"shape": f"({qkv4.shape[0]}, {qkv4.shape[1]}, "
+                           f"{qkv4.shape[2]}, {qkv4.shape[3]}) "
+                           f"{str(qkv4.dtype).split('.')[-1]}, "
+                           f"{int(valid.sum())} real tokens",
+                  "launches": b4_launches,
+                  "max_abs_err": float((out[:, valid].float()
+                                        - ref[:, valid]).abs().max()),
+                  "error_ratio": apk.error_ratio(out[:, valid],
+                                                 ref[:, valid])}
+            if not kb["error_ratio"] <= 1 or not bool(
+                    torch.isfinite(out).all()):
+                raise RuntimeError(f"single_frame (c): B4's first launch: "
+                                   f"kernel vs plain {kb}")
+            del out, ref
+            b, nn_, _, d = qkv4.shape
+            kb["ms"] = gpu_ms(lambda: apk.packed_flash_attention(
+                qkv4, valid, heads, sm), 10)
+            kb["plain_ms"] = gpu_ms(lambda: apk.packed_flash_attention_plain(
+                qkv4, valid, heads, sm), 1)
+            nbytes, ops = packed_work(valid, b, heads, d, 2)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_TC_OPS_PER_S
+            kb.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      bytes=nbytes, ops=ops)
+            # the SDPA route's own call: the real tokens only, no mask
+            q, k, v = qkv4[:, valid].reshape(b, -1, 3, heads, d).permute(
+                2, 0, 3, 1, 4).unbind(0)
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                kb["library_ms"] = gpu_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           scale=sm), 10)
+            del q, k, v, held[:]
+            kb.update(route_max=route["max"], route_mean=route["mean"],
+                      batch_wall_s=b4_wall,
+                      depth_max_abs_diff=float(np.abs(d_b4 - d_sdpa).max()))
+            res["b4"] = kb
+            log(f"[single_frame] ({card}) (c) MoGe-L flash_packed, one batch "
+                f"of {n} frames in {b4_wall:.3f} s: B4 launches "
+                f"{b4_launches}; first launch {kb['shape']}: kernel vs plain "
+                f"(float32) max abs err {kb['max_abs_err']:.3e}, error ratio "
+                f"{kb['error_ratio']:.3f} (limit 1); kernel {kb['ms']:.3f} "
+                f"ms, plain {kb['plain_ms']:.3f} ms, SDPA on the real tokens "
+                f"{kb['library_ms']:.3f} ms, bound {kb['bound_ms']:.3f} ms "
+                f"({kb['bound_by']}: {ops / 1e12:.3f} TFLOP bf16, "
+                f"{nbytes / 1e6:.1f} MB); raw point map vs SDPA: max "
+                f"{route['max']:.3e}, mean {route['mean']:.3e} of its "
+                f"largest (limits {SF_ROUTE_MAX}, {SF_ROUTE_MEAN}); depth "
+                f"max abs diff {kb['depth_max_abs_diff']:.3f} m")
+
+            # (d) engine videoanythingmetric = depth, and depth --profile
+            a = os.path.join(tmp, "vam.mkv")
+            b_ = os.path.join(tmp, "dep.mkv")
+            for path in (a, b_):
+                os.link(clip, path)
+            trace_dir = os.path.join(tmp, "trace")
+            wall_v, _ = command("(d) engine videoanythingmetric",
+                                ["engine", "videoanythingmetric",
+                                 "--color_video", a])
+            wall_d, _ = command("(d) depth --profile",
+                                ["depth", "--color_video", b_, "--profile",
+                                 trace_dir])
+            with vio.VideoReader(a + "_depth.mkv") as r:
+                got = r.read_all()
+            with vio.VideoReader(b_ + "_depth.mkv") as r:
+                want = r.read_all()
+            if got.shape != (n, H, W, 3) or not np.array_equal(got, want):
+                raise RuntimeError("single_frame (d): engine "
+                                   "videoanythingmetric != depth")
+            traces = [f for f in os.listdir(trace_dir)
+                      if f.endswith(".json")]
+            if len(traces) != 1:
+                raise RuntimeError(f"single_frame (d): traces {traces}")
+            res["vda_alias"] = {"videoanythingmetric_s": wall_v,
+                                "depth_profile_s": wall_d,
+                                "trace_bytes": os.path.getsize(
+                                    os.path.join(trace_dir, traces[0]))}
+            log(f"[single_frame] ({card}) (d) engine videoanythingmetric "
+                f"{wall_v:.3f} s == depth --profile {wall_d:.3f} s, bit for "
+                f"bit; trace {res['vda_alias']['trace_bytes'] / 2**20:.1f} "
+                f"MiB")
+
+            # (e) split-sbs on phase 4's SBS frames, inpaint on the clip
+            sbs_path = os.path.join(tmp, "sbs.mkv")
+            vio.save_rgb_video(sbs[:n], sbs_path, 24)
+            wall, _ = command("(e) split-sbs", ["split-sbs", "--sbs_video",
+                                                sbs_path])
+            for suffix, half in (("_left.mkv", sbs[:n, :, :W]),
+                                 ("_right.mkv", sbs[:n, :, W:])):
+                with vio.VideoReader(sbs_path + suffix) as r:
+                    if not np.array_equal(r.read_all(), half):
+                        raise RuntimeError(f"single_frame (e): {suffix} is "
+                                           f"not the SBS half")
+            res["split_sbs_s"] = wall
+            mask = np.zeros((H, W), np.uint8)
+            mask[H - 160:H - 40, W - 420:W - 60] = 255    # a corner logo
+            mask_path = os.path.join(tmp, "overlay.png")
+            cv2.imwrite(mask_path, mask)
+            wall_i, _ = command("(e) inpaint", [
+                "inpaint", "--color_video", clip, "--overlay_mask",
+                mask_path])
+            with vio.VideoReader(clip + "_inpainted.mkv") as r:
+                filled = r.read_all()
+            hole = mask > 16
+            if filled.shape != clip16.shape or not np.array_equal(
+                    filled[:, ~hole], clip16[:, ~hole]) or np.array_equal(
+                    filled[:, hole], clip16[:, hole]):
+                raise RuntimeError("single_frame (e): inpaint output")
+            res["inpaint_s"] = wall_i
+            log(f"[single_frame] ({card}) (e) split-sbs {n} frames of "
+                f"{2 * W}x{H}: {wall:.3f} s, halves bit-equal; inpaint {n} "
+                f"frames (a {int(hole.sum())}-pixel overlay, 96 iterations):"
+                f" {wall_i:.3f} s")
+
+            # (f) the movie's two-pass step 2 on one 40-frame scene
+            m = SF_MOVIE_FRAMES
+            scene = os.path.join(tmp, "movie", "scene_1.mkv")
+            vio.save_rgb_video(frames[:m], scene, 24)
+            scenes = [{"Scene Number": "1", "finished": False,
+                       "scene_video_file": scene,
+                       "depth_video_file": scene + "_depth.mkv"}]
+            zero_counts()
+            t0 = time.perf_counter()
+            movie.step2_estimate_depth(scenes, engine="moge",
+                                       engine_kwargs={"size": "vits",
+                                                      "input_size": 518},
+                                       device=dev)
+            wall = time.perf_counter() - t0
+            expect_counts("single_frame (f) movie step 2", {},
+                          "SDPA attention: no kernel of the repo")
+            check_depth_file("(f)", scene + "_depth.mkv", m)
+            xf = check_xfovs("(f)", scene + "_depth.mkv_xfovs.json", m)
+            if xf[0] != xf[1]:
+                raise RuntimeError(f"single_frame (f): the second pass is "
+                                   f"not locked to one FOV: {xf}")
+            res["movie_step2"] = {"frames": m, "wall_s": wall,
+                                  "fps": m / wall, "xfov": xf[0]}
+            log(f"[single_frame] ({card}) (f) movie step 2, moge stand-in "
+                f"(vits), {m} frames: {wall:.3f} s, {m / wall:.3f} frames/s "
+                f"(two passes), locked at xfov {xf[0]:.3f}")
+    finally:
+        dstage._ENGINE_CLASSES["single_frame"] = make
+    res["s"] = time.perf_counter() - t_phase
+    log(f"[single_frame] ({card}) phase: {res['s']:.3f} s")
+    return res
+
+
 
 def main():
     t_script = time.perf_counter()
@@ -2981,7 +3624,12 @@ def main():
                      help="also build the two sweep sources of this csrc "
                           "directory and time them beside this checkout's "
                           "(phase 2's bitmap ablation)")
-    baseline_csrc = cli.parse_args().baseline_csrc
+    cli.add_argument("--only", choices=("single_frame",),
+                     help="run the build, phases 3-4 (the clip and the SBS "
+                          "frames it needs) and this phase alone; prints "
+                          "no device line")
+    opts = cli.parse_args()
+    baseline_csrc = opts.baseline_csrc
 
     # float32 results are compared against plain versions: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3036,6 +3684,14 @@ def main():
         log(f"[main path] {path}: launches {want}: {why}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    if opts.only == "single_frame":
+        metric, frames, _ = phase_depth(gen, dev)
+        _, _, sbs, _ = phase_stereo(metric, frames, gen, dev)
+        single_frame = phase_single_frame(frames, sbs, dev, zero_counts,
+                                          counts, expect_counts, smi[0])
+        log(json.dumps({"single_frame": single_frame, "card": smi[0]}))
+        log(smi[0])
+        return 0
     sweep, dual, sweep_calls, dual_args = phase_kernels(gen, dev)
     ablation = phase_sweep_ablation(sweep_calls, dual_args, baseline_csrc)
     del sweep_calls, dual_args
@@ -3107,6 +3763,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     stereo_paths = phase_stereo_paths(metric, frames, dev, zero_counts,
+                                      expect_counts, smi[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_frame = phase_single_frame(frames, sbs, dev, zero_counts, counts,
                                       expect_counts, smi[0])
 
     def over(r):
@@ -3193,6 +3853,11 @@ def main():
                      "ms_over_library": over(per_view),
                      "max_abs_err_float32":
                          packed["per_view_float32"]["max_abs_err"]},
+        # MoGe-L's single-view shape (phase 12, single_frame)
+        "single_view_launches": single_frame["b4"]["launches"],
+        "single_view": {k: single_frame["b4"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "error_ratio", "route_max", "route_mean")},
     }]
     for entry in kernels:
         entry.update(kernel_resources(ptxas, entry["name"]))
@@ -3215,6 +3880,7 @@ def main():
     log(json.dumps({"svd_infill": svd_infill, "card": smi[0]}))
     log(json.dumps({"checkpoints": checkpoints, "card": smi[0]}))
     log(json.dumps({"stereo_paths": stereo_paths, "card": smi[0]}))
+    log(json.dumps({"single_frame": single_frame, "card": smi[0]}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,19 @@
-"""Per-engine depth CLI family (the DA3 tool of the JAX package's
-``cli/depth_engines.py``; its other engines are not ported yet, ROADMAP
-A13).
+"""Per-engine depth CLI family (the port of the JAX package's
+``cli/depth_engines.py``): one thin wrapper per engine.
 
-  mdvt-torch engine da3   DA3 windowed multi-view depth + poses + xfovs
-  mdvt-torch da3          the same
+  mdvt-torch engine unidepth   single-frame metric depth, --xfov required
+  mdvt-torch engine unik3d     single-frame, per-frame FOV -> _xfovs.json
+  mdvt-torch engine moge       single-frame, optional --xfov; _xfovs.json
+  mdvt-torch engine depthpro   single-frame, the model's own FOV
+  mdvt-torch engine videoanythingmetric   the VDA engine (--fp32)
+  mdvt-torch engine da3        DA3 windowed multi-view depth + poses + xfovs
+  mdvt-torch da3               the same as engine da3
 
 ``mdvt-torch engine <name>`` dispatches as the JAX package's ``mdvt engine``
-does; the engines other than da3 exit naming ROADMAP A13.
+does; depthcrafter, geometrycrafter and mvsa exit naming their ROADMAP item
+(A13b, A13c). ``--checkpoint`` reads a converted checkpoint: a MoGe,
+UniDepth-V2, UniK3D or DepthPro tree switches its engine onto the real
+graph.
 
 The same flags and defaults as the JAX package. Flags whose path is not
 ported yet raise NotImplementedError naming the ROADMAP item.
@@ -34,7 +41,7 @@ def _base_parser(desc, require_fov=False):
     p.add_argument("--model_size", default="vits")
     p.add_argument("--input_size", default=518, type=int)
     p.add_argument("--checkpoint", type=str,
-                   help="converted checkpoint (not ported yet)")
+                   help="converted checkpoint (models.convert)")
     p.add_argument("--quantize", choices=("none", "int8"), default="none",
                    help="int8 = dynamically quantized backbone matmuls "
                         "(not ported yet)")
@@ -57,6 +64,83 @@ def _relocate(outs, output_dir):
                                               os.path.basename(src)))
         moved.append(os.path.join(output_dir, os.path.basename(o)))
     return moved
+
+
+def _quant(args):
+    return None if args.quantize in (None, "none") else args.quantize
+
+
+def _run_single_frame(args, save_xfovs, variant="da", device=None):
+    from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
+
+    params = None
+    if args.checkpoint:
+        from metric_depth_video_toolbox_tpu_torch.models import convert
+        params = convert.load_checkpoint(args.checkpoint)
+    outs = dstage.run_batch(
+        "single_frame", args.color_video, max_depth=args.max_depth,
+        max_frames=args.max_frames, size=args.model_size,
+        input_size=args.input_size, params=params, xfov=args.xfov,
+        yfov=args.yfov, save_xfovs=save_xfovs, variant=variant,
+        target_fps=args.target_fps, quantize=_quant(args), device=device)
+    outs = _relocate(outs, args.output_dir)
+    for o in outs:
+        print(f"depth video saved: {o}")
+    return outs
+
+
+def unidepth_main(argv=None):
+    """Known-camera conditioning: --xfov is mandatory and its rays condition
+    the model."""
+    args = _base_parser("UniDepth-class per-frame metric depth "
+                        "(FOV required).", require_fov=True).parse_args(argv)
+    return _run_single_frame(args, save_xfovs=False, variant="unidepth")
+
+
+def unik3d_main(argv=None):
+    """Per-frame focal re-estimated from the model's 3D points ->
+    *_xfovs.json."""
+    args = _base_parser("UniK3D-class per-frame metric depth; estimates "
+                        "per-frame FOV -> *_xfovs.json.").parse_args(argv)
+    return _run_single_frame(args, save_xfovs=True, variant="unik3d")
+
+
+def moge_main(argv=None):
+    """Masked sky -> max_depth; an optional --xfov fixes the focal, else
+    the point map's focal solve estimates it."""
+    args = _base_parser("MoGe-class per-frame depth with optional fov_x; "
+                        "writes xfovs.").parse_args(argv)
+    return _run_single_frame(args, save_xfovs=True, variant="moge")
+
+
+def depthpro_main(argv=None):
+    """The model estimates its own focal length per frame ->
+    *_xfovs.json."""
+    args = _base_parser("DepthPro-class per-frame metric depth (estimates "
+                        "focal length).").parse_args(argv)
+    return _run_single_frame(args, save_xfovs=True, variant="depthpro")
+
+
+def videoanythingmetric_main(argv=None):
+    """The VDA engine with --fp32. As in the JAX package, --output_dir,
+    --checkpoint, --xfov and --yfov are accepted and not passed on."""
+    p = _base_parser("Metric-Video-Depth-Anything-class direct metric "
+                     "video depth.")
+    p.add_argument("--fp32", action="store_true",
+                   help="full-precision inference (default bfloat16)")
+    args = p.parse_args(argv)
+    from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
+    outs = dstage.run_batch("vda", args.color_video,
+                            max_depth=args.max_depth,
+                            max_frames=args.max_frames,
+                            size=args.model_size,
+                            input_size=args.input_size,
+                            fp32=args.fp32,
+                            target_fps=args.target_fps,
+                            quantize=_quant(args))
+    for o in outs:
+        print(f"depth video saved: {o}")
+    return outs
 
 
 def build_da3_parser():
@@ -91,9 +175,7 @@ def run_da3(args, device=None):
         overlap=args.batch_overlap, num_ref_frames=args.nr_of_ref_frames,
         resolution=args.da3_resolution,
         backbone=args.backbone_checkpoint, xfov=args.xfov, yfov=args.yfov,
-        xfovs=xfovs,
-        quantize=None if args.quantize == "none" else args.quantize,
-        device=device)
+        xfovs=xfovs, quantize=_quant(args), device=device)
     outs = _relocate(outs, args.output_dir)
     for o in outs:
         print(f"depth video saved: {o}")
@@ -104,13 +186,13 @@ def da3_main(argv=None):
     return run_da3(build_da3_parser().parse_args(argv))
 
 
-# the JAX package's engines, in its order; None: not ported yet (A13)
+# the JAX package's engines, in its order; None: not ported yet
 MAINS = {
-    "unidepth": None,
-    "unik3d": None,
-    "moge": None,
-    "depthpro": None,
-    "videoanythingmetric": None,
+    "unidepth": unidepth_main,
+    "unik3d": unik3d_main,
+    "moge": moge_main,
+    "depthpro": depthpro_main,
+    "videoanythingmetric": videoanythingmetric_main,
     "da3": da3_main,
     "depthcrafter": None,
     "geometrycrafter": None,
@@ -131,6 +213,8 @@ def main(argv=None):
         print(f"unknown engine '{name}'; one of: {', '.join(MAINS)}")
         return 2
     if MAINS[name] is None:
+        from metric_depth_video_toolbox_tpu_torch.pipeline.depth import \
+            LATER_ENGINES
         raise SystemExit(f"mdvt-torch engine {name}: not ported yet (see "
-                         f"ROADMAP.md, A13)")
+                         f"ROADMAP.md, {LATER_ENGINES[name]})")
     return MAINS[name](argv[1:])

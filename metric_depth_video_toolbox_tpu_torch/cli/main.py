@@ -3,8 +3,9 @@
   mdvt-torch movie     movie_2_3d: scenes -> depth -> masks -> convergence
                        -> stereo -> infill -> <movie>_SBS.mkv
   mdvt-torch depth     video_metric_convert (VDA engine)
-  mdvt-torch engine    per-engine depth CLIs (engine da3; the others are
-                       not ported yet)
+  mdvt-torch engine    per-engine depth CLIs (unidepth, unik3d, moge,
+                       depthpro, videoanythingmetric, da3; the diffusion and
+                       MVS engines are not ported yet)
   mdvt-torch da3       DA3 multi-view depth + poses + xfovs (= engine da3)
   mdvt-torch stereo    stereo_rerender (SBS, Touchly, VR180, background)
   mdvt-torch mask      generate_video_mask (U²-Net subject masks)
@@ -13,6 +14,10 @@
   mdvt-torch download-weights  fetch published checkpoints, --convert them
   mdvt-torch view      view_depthfile --render (novel-view render to video;
                        the interactive viewer is not ported yet)
+  mdvt-torch split-sbs split an SBS video into _left / _right videos
+  mdvt-torch inpaint   inpaint a static overlay region in every frame
+  mdvt-torch project   headless project manager (create, status, set,
+                       split, run)
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
@@ -44,11 +49,18 @@ SUBCOMMANDS = {
                          "download_weights", "main"),
     "view": ("metric_depth_video_toolbox_tpu_torch.cli.view_depthfile",
              "main"),
+    "split-sbs": ("metric_depth_video_toolbox_tpu_torch.cli.split_sbs_video",
+                  "main"),
+    "inpaint": ("metric_depth_video_toolbox_tpu_torch.cli.apply_inpainting",
+                "main"),
+    "project": ("metric_depth_video_toolbox_tpu_torch.cli.project", "main"),
 }
 
-NOT_PORTED = ("track", "align", "export", "split-sbs",
-              "analyse-tracking", "analyse-depth", "flow", "slam", "upscale",
-              "project", "inpaint", "gui", "bench")
+# the JAX package's other subcommands -> the ROADMAP item that ports them
+NOT_PORTED = {"track": "A14", "align": "A14", "flow": "A14", "slam": "A14",
+              "export": "A15", "analyse-tracking": "A15",
+              "analyse-depth": "A15", "gui": "A15", "upscale": "A13c",
+              "bench": "A9"}
 
 
 def main(argv=None):
@@ -63,7 +75,7 @@ def main(argv=None):
     rest = argv[1:]
     if args.command in NOT_PORTED:
         raise SystemExit(f"mdvt-torch {args.command}: not ported yet "
-                         "(see ROADMAP.md, queue A)")
+                         f"(see ROADMAP.md, {NOT_PORTED[args.command]})")
     module, entry = SUBCOMMANDS[args.command]
     getattr(importlib.import_module(module), entry)(rest)
 

@@ -1,9 +1,11 @@
 """CLI: full 2D movie -> 3D SBS movie (the port of ``cli/movie_2_3d.py``,
 the same flags and defaults).
 
-``--depth_engine`` vda (default) or da3; the JAX package's other engines,
-``--quantize int8`` and ``--parallel`` > 1 raise NotImplementedError
-naming their ROADMAP item.
+``--depth_engine`` vda (default), da3, videoanythingmetric, or a
+single-frame engine (unidepth, unik3d, moge, depthpro, single_frame: two
+passes per scene, the second locked to the first's median FOV);
+depthcrafter, geometrycrafter, mvsa, ``--quantize int8`` and
+``--parallel`` > 1 raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations

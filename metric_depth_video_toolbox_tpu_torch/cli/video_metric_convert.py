@@ -4,7 +4,8 @@ The same flags and defaults as the JAX package's
 ``cli/video_metric_convert.py``, including the ``.txt`` batch-list
 protocol. ``--checkpoint`` reads a converted VDA checkpoint
 (``models.convert.convert_vda`` of an upstream
-``video_depth_anything_vit*.pth``, saved as ``.msgpack`` or ``.pkl``).
+``video_depth_anything_vit*.pth``, saved as ``.msgpack`` or ``.pkl``);
+``--profile DIR`` writes a Chrome trace of the run into DIR.
 Flags whose path is not ported yet raise NotImplementedError.
 """
 
@@ -44,8 +45,7 @@ def build_parser(parser=None):
     p.add_argument("--checkpoint", type=str,
                    help="converted checkpoint (models.convert)")
     p.add_argument("--profile", type=str, metavar="DIR",
-                   help="capture a profiler trace into DIR (not ported "
-                        "yet)")
+                   help="capture a profiler trace into DIR")
     return p
 
 
@@ -56,18 +56,18 @@ def run(args, device=None):
     if args.checkpoint:
         from metric_depth_video_toolbox_tpu_torch.models import convert
         params = convert.load_checkpoint(args.checkpoint)
-    if args.profile:
-        raise NotImplementedError("not ported yet: --profile")
-    outs = dstage.run_batch(
-        "vda", args.color_video, max_depth=args.max_depth,
-        max_frames=args.max_frames, target_fps=args.target_fps,
-        input_size=args.input_size, size=args.model_size,
-        window=args.window, params=params, fp32=args.fp32,
-        reference_depth_video=args.depth_video,
-        quantize=None if args.quantize == "none" else args.quantize,
-        rolling_average=(0 if args.no_rolling_average
-                         else args.rolling_average),
-        device=device)
+    from metric_depth_video_toolbox_tpu_torch.utils.timer import device_trace
+    with device_trace(args.profile):
+        outs = dstage.run_batch(
+            "vda", args.color_video, max_depth=args.max_depth,
+            max_frames=args.max_frames, target_fps=args.target_fps,
+            input_size=args.input_size, size=args.model_size,
+            window=args.window, params=params, fp32=args.fp32,
+            reference_depth_video=args.depth_video,
+            quantize=None if args.quantize == "none" else args.quantize,
+            rolling_average=(0 if args.no_rolling_average
+                             else args.rolling_average),
+            device=device)
     for o in outs:
         print(f"depth video saved: {o}")
     return outs

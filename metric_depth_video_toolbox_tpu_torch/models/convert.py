@@ -10,11 +10,12 @@ tree made here equals the JAX package's leaf for leaf. Conventions:
   torch LayerNorm weight / bias   -> scale / bias
 
 Covered: DINOv2 (original and HF layouts), the DPT heads, DA-V2, DA3,
-Video-Depth-Anything, Wan (InSpatio-World), U²-Net, the SVD family
-(StereoCrafter UNet and VAE, the m2svid sgm checkpoint) and the CLIP
-vision tower. The converters of engines not ported yet wait for their
-ROADMAP items (``convert_torch_file`` names them). Files are read and
-written by ``io.checkpoint`` (Flax's msgpack or a pickle), without JAX.
+Video-Depth-Anything, MoGe, UniDepth-V2, UniK3D, DepthPro (HF layout),
+Wan (InSpatio-World), U²-Net, the SVD family (StereoCrafter UNet and
+VAE, the m2svid sgm checkpoint) and the CLIP vision tower. The converters
+of engines not ported yet wait for their ROADMAP items
+(``convert_torch_file`` names them). Files are read and written by
+``io.checkpoint`` (Flax's msgpack or a pickle), without JAX.
 """
 
 from __future__ import annotations
@@ -306,6 +307,148 @@ def convert_da3(state_dict, cfg, grid_hw=None):
     if "ray_embed.weight" in state_dict:
         p["ray_embed"] = linear(state_dict, "ray_embed")
     return {"params": p}
+
+
+def convert_moge(state_dict, cfg):
+    """MoGe point-map checkpoint (reference moge_video.py:13, the
+    Ruicheng/moge-vitl family) -> our models.moge.MoGeNet params.
+
+    Layout (documented in models/moge.py): backbone.* DINOv2 keys;
+    head.projects.{i} summed 1x1 level projections;
+    head.upsample_blocks.{i} = [ConvTranspose2d(in+2,out,2,2),
+    Conv3x3, ResidualConvBlock...]; head.output_block = [Conv3x3(in+2,
+    32), ReLU, Conv1x1(32, 4)]. Forward equivalence vs a torch mirror:
+    tests/test_weight_exact_moge.py.
+    """
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in state_dict.items()
+                if k.startswith(prefix)}
+
+    hd = sub("head.")
+    head = {}
+    for i in range(4):
+        head[f"project{i}"] = conv(hd, f"projects.{i}")
+    for i in range(len(cfg.dim_upsample)):
+        ub = f"upsample_blocks.{i}"
+        head[f"upsample{i}"] = conv_transpose(hd, f"{ub}.0")
+        head[f"upconv{i}"] = conv(hd, f"{ub}.1")
+        for j in range(cfg.num_res_blocks):
+            rb = f"{ub}.{2 + j}"
+            head[f"res{i}_{j}"] = {
+                "norm1": groupnorm(hd, rb + ".norm1"),
+                "conv1": conv(hd, rb + ".conv1"),
+                "norm2": groupnorm(hd, rb + ".norm2"),
+                "conv2": conv(hd, rb + ".conv2"),
+            }
+    head["out_conv1"] = conv(hd, "output_block.0")
+    head["out_conv2"] = conv(hd, "output_block.2")
+    return {"params": {
+        "backbone": convert_dinov2_vit(sub("backbone."), cfg.vit),
+        "head": head,
+    }}
+
+
+def _vit_block_params(sd, prefix):
+    """One DINOv2-style transformer block (norm1, attn.qkv/proj,
+    ls1/ls2.gamma, norm2, mlp.fc1/fc2) -> models.vit.Block params."""
+    return {
+        "norm1": layernorm(sd, f"{prefix}.norm1"),
+        "attn": {"qkv": linear(sd, f"{prefix}.attn.qkv"),
+                 "proj": linear(sd, f"{prefix}.attn.proj")},
+        "ls1": {"gamma": _t(sd[f"{prefix}.ls1.gamma"])},
+        "norm2": layernorm(sd, f"{prefix}.norm2"),
+        "mlp": {"fc1": linear(sd, f"{prefix}.mlp.fc1"),
+                "fc2": linear(sd, f"{prefix}.mlp.fc2")},
+        "ls2": {"gamma": _t(sd[f"{prefix}.ls2.gamma"])},
+    }
+
+
+def _token_decoder(sd, cfg, num_blocks, with_rays):
+    """UniDepth/UniK3D token decoder (projects.N [+ ray_mlp1/2] +
+    blocks.N) -> models.unidepth.TokenDecoder params. ``sd`` is the
+    torch sub-dict rooted at the decoder (e.g. 'depth.')."""
+    p = {f"project{i}": linear(sd, f"projects.{i}") for i in range(4)}
+    if with_rays:
+        p["ray_mlp1"] = linear(sd, "ray_mlp1")
+        p["ray_mlp2"] = linear(sd, "ray_mlp2")
+    for i in range(num_blocks):
+        p[f"block{i}"] = _vit_block_params(sd, f"blocks.{i}")
+    return p
+
+
+def _pixel_head(sd, cfg):
+    """UniDepth/UniK3D pixel head (upsampleN/upconvN + out_conv1/2) ->
+    models.unidepth.PixelHead params."""
+    p = {}
+    for i in range(len(cfg.dim_upsample)):
+        p[f"upsample{i}"] = conv_transpose(sd, f"upsample{i}")
+        p[f"upconv{i}"] = conv(sd, f"upconv{i}")
+    p["out_conv1"] = conv(sd, "out_conv1")
+    p["out_conv2"] = conv(sd, "out_conv2")
+    return p
+
+
+def _sub(state_dict, prefix):
+    return {k[len(prefix):]: v for k, v in state_dict.items()
+            if k.startswith(prefix)}
+
+
+def convert_unidepth(state_dict, cfg):
+    """UniDepth-V2 class checkpoint (reference unidepth_video.py:14,
+    lpiccinelli/unidepth-v2-vitl14 family) -> our
+    models.unidepth.UniDepthNet params.
+
+    Layout (documented in models/unidepth.py): backbone.* DINOv2 keys;
+    camera.{in_proj, queries, q/k/v/out_proj, mlp1, mlp2} attention-
+    pooled pinhole head; depth.{projects.N, ray_mlp1/2, blocks.N,
+    upsampleN/upconvN, out_conv1/2}. Forward equivalence vs a torch
+    mirror: tests/test_weight_exact_unidepth.py.
+    """
+    cam = _sub(state_dict, "camera.")
+    camera = {
+        "in_proj": linear(cam, "in_proj"),
+        "queries": _t(cam["queries"]),
+        "q_proj": linear(cam, "q_proj"),
+        "k_proj": linear(cam, "k_proj"),
+        "v_proj": linear(cam, "v_proj"),
+        "out_proj": linear(cam, "out_proj"),
+        "mlp1": linear(cam, "mlp1"),
+        "mlp2": linear(cam, "mlp2"),
+    }
+    dep = _sub(state_dict, "depth.")
+    return {"params": {
+        "backbone": convert_dinov2_vit(_sub(state_dict, "backbone."),
+                                       cfg.vit),
+        "camera": camera,
+        "depth": {
+            "tokens": _token_decoder(dep, cfg, cfg.num_blocks, True),
+            "pixel": _pixel_head(dep, cfg),
+        },
+    }}
+
+
+def convert_unik3d(state_dict, cfg):
+    """UniK3D class checkpoint (reference unik3d_video.py:13,
+    lpiccinelli/unik3d-vitl family) -> our models.unidepth.UniK3DNet
+    params.
+
+    Layout (documented in models/unidepth.py): backbone.* DINOv2 keys;
+    angular.{projects.N, blocks.N, out} dense ray-field head;
+    radius.{projects.N, ray_mlp1/2, blocks.N, upsampleN/upconvN,
+    out_conv1/2} SH-ray-conditioned radial head. Forward equivalence vs
+    a torch mirror: tests/test_weight_exact_unidepth.py.
+    """
+    ang = _sub(state_dict, "angular.")
+    rad = _sub(state_dict, "radius.")
+    return {"params": {
+        "backbone": convert_dinov2_vit(_sub(state_dict, "backbone."),
+                                       cfg.vit),
+        "angular": _token_decoder(ang, cfg, cfg.num_angular_blocks,
+                                  False),
+        "angular_out": linear(ang, "out"),
+        "radius_tokens": _token_decoder(rad, cfg, cfg.num_blocks, True),
+        "radius_pixel": _pixel_head(rad, cfg),
+    }}
 
 
 def _motion_module(sd, prefix, n_blocks=1, n_attn=2):
@@ -807,6 +950,72 @@ def convert_clip_vision(state_dict, cfg):
     return {"params": p}
 
 
+def convert_depthpro_hf(state_dict, cfg):
+    """HF transformers DepthProForDepthEstimation state dict (e.g.
+    apple/DepthPro-hf) -> our models.depthpro.DepthProNet params.
+    Forward equivalence proven against the real transformers module in
+    tests/test_weight_exact_depthpro.py (reference depthpro_video.py
+    reads predicted_depth + focallength_px from this model)."""
+    sd = state_dict
+    p = {
+        "patch_encoder": convert_dinov2_hf(
+            sd, cfg.vit, prefix="depth_pro.encoder.patch_encoder.model."),
+        "image_encoder": convert_dinov2_hf(
+            sd, cfg.vit, prefix="depth_pro.encoder.image_encoder.model."),
+    }
+    up = "depth_pro.neck.feature_upsample."
+    p["upsample_image"] = conv_transpose(sd, up + "image_block.layers.0")
+    for i in range(len(cfg.scaled_images_ratios)):
+        b = f"{up}scaled_images.{i}.layers"
+        p[f"upsample_scaled{i}_proj"] = conv(sd, f"{b}.0")
+        p[f"upsample_scaled{i}_up0"] = conv_transpose(sd, f"{b}.1")
+    for i in range(len(cfg.intermediate_hook_ids)):
+        b = f"{up}intermediate.{i}.layers"
+        p[f"upsample_inter{i}_proj"] = conv(sd, f"{b}.0")
+        for j in range(2 + i):
+            p[f"upsample_inter{i}_up{j}"] = conv_transpose(
+                sd, f"{b}.{j + 1}")
+    p["fuse_low"] = conv(sd, "depth_pro.neck.fuse_image_with_low_res")
+    n_levels = (len(cfg.scaled_images_ratios)
+                + len(cfg.intermediate_hook_ids))
+    dims = (list(cfg.scaled_images_feature_dims)
+            + list(cfg.intermediate_feature_dims))
+    for i in range(n_levels):
+        if i == n_levels - 1 and dims[i] == cfg.fusion_hidden_size:
+            continue  # HF Identity projection
+        p[f"project{i}"] = conv(
+            sd, f"depth_pro.neck.feature_projection.projections.{i}")
+    for i in range(n_levels):
+        fl = (f"fusion_stage.intermediate.{i}" if i < n_levels - 1
+              else "fusion_stage.final")
+        if i > 0:  # layer 0's residual_layer1 exists in HF but is unused
+            p[f"fusion{i}_rcu1_conv1"] = conv(
+                sd, fl + ".residual_layer1.convolution1")
+            p[f"fusion{i}_rcu1_conv2"] = conv(
+                sd, fl + ".residual_layer1.convolution2")
+        p[f"fusion{i}_rcu2_conv1"] = conv(
+            sd, fl + ".residual_layer2.convolution1")
+        p[f"fusion{i}_rcu2_conv2"] = conv(
+            sd, fl + ".residual_layer2.convolution2")
+        if i < n_levels - 1:
+            p[f"fusion{i}_deconv"] = conv_transpose(sd, fl + ".deconv")
+        p[f"fusion{i}_project"] = conv(sd, fl + ".projection")
+    p["head_conv1"] = conv(sd, "head.layers.0")
+    p["head_deconv"] = conv_transpose(sd, "head.layers.1")
+    p["head_conv2"] = conv(sd, "head.layers.2")
+    p["head_conv3"] = conv(sd, "head.layers.4")
+    if cfg.use_fov and "fov_model.conv.weight" in sd:
+        p["fov_encoder"] = convert_dinov2_hf(
+            sd, cfg.vit, prefix="fov_model.fov_encoder.model.")
+        p["fov_neck"] = linear(sd, "fov_model.fov_encoder.neck")
+        p["fov_conv"] = conv(sd, "fov_model.conv")
+        for i in range(cfg.num_fov_head_layers):
+            p[f"fov_head{i}"] = conv(sd, f"fov_model.head.layers.{2 * i}")
+        p["fov_head_final"] = conv(
+            sd, f"fov_model.head.layers.{2 * cfg.num_fov_head_layers}")
+    return {"params": p}
+
+
 def convert_torch_file(path, kind, cfg=None):
     """Load a torch checkpoint file (CPU) and convert by ``kind``, with the
     JAX package's dispatch. As there, ``cfg`` None reaches the converters
@@ -830,6 +1039,15 @@ def convert_torch_file(path, kind, cfg=None):
     if kind == "da3":
         from metric_depth_video_toolbox_tpu_torch.models import da3
         return convert_da3(sd, cfg or da3.DA3_L)
+    if kind == "moge":
+        from metric_depth_video_toolbox_tpu_torch.models import moge
+        return convert_moge(sd, cfg or moge.MOGE_L)
+    if kind == "unidepth":
+        from metric_depth_video_toolbox_tpu_torch.models import unidepth
+        return convert_unidepth(sd, cfg or unidepth.UNIDEPTH_L)
+    if kind == "unik3d":
+        from metric_depth_video_toolbox_tpu_torch.models import unidepth
+        return convert_unik3d(sd, cfg or unidepth.UNIDEPTH_L)
     if kind in ("wan", "inspatio_world"):
         from metric_depth_video_toolbox_tpu_torch.models import wan
         return convert_wan(sd, cfg or wan.WAN_1_3B)
@@ -847,12 +1065,14 @@ def convert_torch_file(path, kind, cfg=None):
         return convert_svd_vae(sd, cfg)
     if kind == "clip_vision":
         return convert_clip_vision(sd, cfg)
+    if kind == "depthpro_hf":
+        from metric_depth_video_toolbox_tpu_torch.models import depthpro
+        return convert_depthpro_hf(sd, cfg or depthpro.DEPTHPRO_L)
     raise ValueError(f"unknown checkpoint kind: {kind}")
 
 
 # the JAX package's other kinds, with the ROADMAP item that ports them
-_LATER = {"moge": "A13", "unidepth": "A13", "unik3d": "A13",
-          "promptda_hf": "A13", "pmap_vae": "A13", "depthpro_hf": "A13",
+_LATER = {"promptda_hf": "A13", "pmap_vae": "A13",
           "droid": "A14", "megasam": "A14", "raft": "A14",
           "cotracker3": "A14"}
 

@@ -1,6 +1,9 @@
 """Depth-Anything-class monocular depth (PyTorch port of
 ``models/depth_anything.py``): ViT + DPT head, used as the VDA engine's
-per-frame metric anchor."""
+per-frame metric anchor and as the stand-in graph of the single-frame
+engines, with their three optional heads: known-camera ray conditioning
+(``k_condition``), a FOV head (``fov_head``) and a raw point-map head
+(``point_head``)."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from metric_depth_video_toolbox_tpu_torch.models import dpt as dpt_mod
@@ -21,6 +25,14 @@ class DepthAnythingConfig:
     dpt: dpt_mod.DPTConfig = dpt_mod.DPTConfig()
     metric: bool = True
     max_depth: float = 20.0
+    # per-patch camera-ray directions, embedded by ``ray_embed`` and added
+    # to the patch tokens through the ViT's ``cond``
+    k_condition: bool = False
+    # a horizontal FOV (25..115 deg) regressed from the cls token
+    fov_head: bool = False
+    # the DPT head's raw 4-channel map: an affine point map (xyz) and a
+    # mask logit (needs dpt n_out=4, head_act="none")
+    point_head: bool = False
 
 
 def preset(name, metric=True, max_depth=20.0):
@@ -32,25 +44,46 @@ def preset(name, metric=True, max_depth=20.0):
 class DepthAnything(nn.Module):
     """images (B, H, W, 3) in [0, 1] at ``work_hw`` -> (B, H, W) float32
     depth (metric: sigmoid head x max_depth, or the relu head clipped to
-    [0, max_depth]; else the raw relative output)."""
+    [0, max_depth]; else the raw relative output); (depth, xfov (B,)) with
+    ``fov_head``; (points (B, H, W, 3), mask logit (B, H, W)) with
+    ``point_head``. ``rays``: (B, gh, gw, 3) unit rays at the patch
+    centers, used with ``k_condition``."""
 
     def __init__(self, cfg: DepthAnythingConfig, work_hw):
         super().__init__()
         self.cfg = cfg
         p = cfg.vit.patch_size
+        d, dt = cfg.vit.embed_dim, cfg.vit.compute_dtype
         n = (work_hw[0] // p) * (work_hw[1] // p)
+        if cfg.k_condition:
+            self.ray_embed = vit_mod.Dense(3, d, dt)
         self.backbone = vit_mod.ViT(cfg.vit, n)
-        self.head = dpt_mod.DPTHead(cfg.dpt, cfg.vit.embed_dim, p)
+        self.head = dpt_mod.DPTHead(cfg.dpt, d, p)
+        if cfg.fov_head and not cfg.point_head:
+            self.fov_fc = vit_mod.Dense(d, 64, dt)
+            self.fov_out = vit_mod.Dense(64, 1, torch.float32)
 
-    def forward(self, images):
+    def forward(self, images, rays=None):
         c = self.cfg
-        feats, _ = self.backbone(images)
-        out = self.head(feats)[..., 0].to(torch.float32)
+        cond = None
+        if c.k_condition and rays is not None:
+            cond = self.ray_embed(rays)
+        feats, cls = self.backbone(images, cond)
+        out = self.head(feats)
+        if c.point_head:
+            out = out.to(torch.float32)
+            return out[..., :3], out[..., 3]
+        out = out[..., 0].to(torch.float32)
         if c.metric:
             if c.dpt.head_act == "sigmoid":
                 out = out * c.max_depth
             else:
                 out = torch.clamp(out, 0.0, c.max_depth)
+        if c.fov_head:
+            # flax nn.gelu: the tanh form
+            h = F.gelu(self.fov_fc(cls), approximate="tanh")
+            f = self.fov_out(h)
+            return out, 25.0 + 90.0 * torch.sigmoid(f[..., 0])
         return out
 
 

@@ -96,17 +96,19 @@ def upsample(cfg: DPTConfig):
 class ConvTranspose(nn.ConvTranspose2d):
     """NHWC flax ``nn.ConvTranspose`` with kernel = stride ('SAME' adds no
     overlap then): ``ConvTranspose2d(k, stride=k)`` with the flax kernel
-    flipped (``models.from_jax`` flips it), computing in a given dtype."""
+    flipped (``models.from_jax`` flips it), ``ch`` -> ``out_ch`` (default
+    ``ch``) channels, computing in a given dtype."""
 
-    def __init__(self, ch, k, dtype):
-        super().__init__(ch, ch, k, stride=k)
+    def __init__(self, ch, k, dtype, out_ch=None, bias=True):
+        super().__init__(ch, out_ch or ch, k, stride=k, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
-                               self.weight.to(dt), self.bias.to(dt),
-                               stride=self.stride)
+        y = F.conv_transpose2d(
+            x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
+            self.bias.to(dt) if self.bias is not None else None,
+            stride=self.stride)
         return y.permute(0, 2, 3, 1)
 
 

@@ -24,8 +24,11 @@ the layout changes of each leaf:
 
 Covers the SVD-class diffusion models (``models.diffusion``,
 ``models.svd``, ``models.clip``), ViT, DPTHead, DPTHeadTemporal,
-VideoDepthAnything, DepthAnything, DA3 (``backbone``, ``head.depth``,
-``head.ray``, ``ray_embed``), and Wan's WanDiT, WanVAEEncoder and
+VideoDepthAnything, DepthAnything (with its ``ray_embed``, ``fov_fc``,
+``fov_out``), DA3 (``backbone``, ``head.depth``, ``head.ray``,
+``ray_embed``), MoGeNet, UniDepthNet and UniK3DNet (UniDepth's learned
+camera ``queries`` as they are), DepthProNet, and Wan's WanDiT,
+WanVAEEncoder and
 WanVAEDecoder (RMSNorm ``scale`` and
 FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale), and
 U2Net (``models.segmentation``; its batch norms' running statistics are

@@ -180,3 +180,125 @@ def frustum_corners(k, width, height, near, far, cam_to_world=None):
     if cam_to_world is not None:
         corners = transform_points(corners[None], cam_to_world)[0]
     return corners
+
+
+def estimate_focal_from_points(points_cam, height, width, weights=None):
+    """Effective (fx, fy) of a model's point map (..., H, W, 3): the
+    least-squares fit of u = fx * x / z + cx over all pixels (optionally
+    weighted), per leading index. -> (fx, fy), each of shape (...)."""
+    h, w = height, width
+    x = points_cam[..., 0]
+    y = points_cam[..., 1]
+    z = torch.clamp(points_cam[..., 2], min=1e-6)
+    dev = points_cam.device
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - (w / 2.0)
+    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - (h / 2.0)
+    wts = torch.ones_like(z) if weights is None else weights
+    rx = x / z
+    ry = y / z
+    fx = torch.sum(wts * rx * u, dim=(-2, -1)) / torch.clamp(
+        torch.sum(wts * rx * rx, dim=(-2, -1)), min=1e-9)
+    fy = torch.sum(wts * ry * v, dim=(-2, -1)) / torch.clamp(
+        torch.sum(wts * ry * ry, dim=(-2, -1)), min=1e-9)
+    return fx, fy
+
+
+def normalized_uv(height, width, dtype=torch.float32, device=None):
+    """(H, W, 2) pixel-center coordinates normalized by the half height: v
+    spans [-1, 1] over rows, u [-asp, asp] (asp = W / H) over columns. The
+    matching normalized focal f has xfov = 2 atan(asp / f)."""
+    asp = width / height
+    u = ((torch.arange(width, dtype=dtype, device=device) + 0.5) / width
+         * 2.0 - 1.0) * asp
+    v = (torch.arange(height, dtype=dtype, device=device) + 0.5) / height \
+        * 2.0 - 1.0
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    return torch.stack([uu, vv], dim=-1)
+
+
+def _linspace(lo, hi, k):
+    """``jnp.linspace(lo, hi, k)`` over a batch of bounds (B,) -> (B, k):
+    lo (1 - s) + hi s with s = i / (k - 1), the last point hi itself."""
+    s = (torch.arange(k - 1, dtype=lo.dtype, device=lo.device)
+         / float(k - 1))[None]
+    return torch.cat([lo[:, None] * (1 - s) + hi[:, None] * s, hi[:, None]],
+                     dim=1)
+
+
+def recover_focal_shift(points, weights=None, focal=None, rounds=3, k=33,
+                        eps=1e-6):
+    """(normalized focal, z shift, rms) of affine-invariant point maps
+    (..., H, W, 3): the shift that, with the best focal for it (closed
+    form; or the fixed ``focal`` = asp / tan(xfov / 2)), reprojects the
+    points onto the pixel grid of :func:`normalized_uv` with the least
+    weighted error. A log-spaced grid of ``k`` shifts above -min(z), zoomed
+    ``rounds`` times into the winning cell; candidates that put weighted
+    pixels behind the camera are penalized. Depth = z + shift. Each of the
+    three results has the leading shape; (B, k, H, W) temporaries."""
+    lead = points.shape[:-3]
+    h, w = points.shape[-3:-1]
+    p = points.reshape((-1, h, w, 3))
+    uv = normalized_uv(h, w, p.dtype, p.device)
+    x, y, z = p.unbind(-1)
+    wts = torch.ones_like(z) if weights is None else weights.reshape(z.shape)
+    wsum = torch.clamp(torch.sum(wts, dim=(1, 2)), min=eps)[:, None]
+    pos = wts > 0
+    big = torch.tensor(1e30, dtype=z.dtype, device=z.device)
+    zmin = torch.amin(torch.where(pos, z, big), dim=(1, 2))
+    zmax = torch.amax(torch.where(pos, z, -big), dim=(1, 2))
+    span = torch.clamp(zmax - zmin, min=eps)
+    zero = torch.zeros((), dtype=z.dtype, device=z.device)
+
+    def cost_for(shift):                       # (B, k) -> (B, k) x 2
+        zs = z[:, None] + shift[:, :, None, None]
+        safe = pos[:, None] & (zs > eps)
+        denom = torch.where(safe, zs, torch.ones_like(zs))
+        a = torch.where(safe, x[:, None] / denom, zero)
+        b = torch.where(safe, y[:, None] / denom, zero)
+        wk = torch.where(safe, wts[:, None], zero)
+        num = torch.sum(wk * (a * uv[..., 0] + b * uv[..., 1]), dim=(2, 3))
+        den = torch.sum(wk * (a * a + b * b), dim=(2, 3))
+        f = (torch.clamp(num, min=eps) / torch.clamp(den, min=eps)
+             if focal is None else torch.full_like(num, focal))
+        fe = f[:, :, None, None]
+        resid = wk * ((fe * a - uv[..., 0]) ** 2 + (fe * b - uv[..., 1]) ** 2)
+        bad = torch.sum(torch.where(pos[:, None] & ~safe, wts[:, None], zero),
+                        dim=(2, 3))
+        return (torch.sum(resid, dim=(2, 3)) / wsum
+                + bad / wsum * 1e3), f
+
+    lo = torch.log(span * 1e-3)
+    hi = torch.log(span * 10.0)
+    best_t = -zmin + torch.exp(0.5 * (lo + hi))
+    best_f = torch.ones_like(zmin)
+    best_c = big.expand_as(zmin)
+    rows = torch.arange(zmin.shape[0], device=z.device)
+    for _ in range(rounds):
+        cand = -zmin[:, None] + eps + torch.exp(_linspace(lo, hi, k))
+        c, f = cost_for(cand)
+        i = torch.argmin(c, dim=1)
+        ci = c[rows, i]
+        better = ci < best_c
+        best_t = torch.where(better, cand[rows, i], best_t)
+        best_f = torch.where(better, f[rows, i], best_f)
+        best_c = torch.minimum(ci, best_c)
+        step = (hi - lo) / (k - 1)
+        center = lo + step * i.to(lo.dtype)
+        lo, hi = center - step, center + step
+    return (best_f.reshape(lead), best_t.reshape(lead),
+            torch.sqrt(best_c).reshape(lead))
+
+
+def xfov_from_normalized_focal(focal, height, width):
+    """Horizontal FOV in degrees of a :func:`normalized_uv` focal."""
+    asp = width / height
+    focal = torch.as_tensor(focal, dtype=torch.float32)
+    return torch.rad2deg(2.0 * torch.atan2(torch.full_like(focal, asp),
+                                           focal))
+
+
+def normalized_focal_from_xfov(xfov_deg, height, width):
+    """The :func:`normalized_uv` focal of a horizontal FOV in degrees."""
+    asp = width / height
+    xfov = torch.as_tensor(xfov_deg, dtype=torch.float32)
+    return asp / torch.tan(torch.deg2rad(xfov) / 2.0)

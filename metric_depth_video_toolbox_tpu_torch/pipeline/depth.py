@@ -7,6 +7,10 @@ scale/shift fit against a per-frame Depth-Anything metric anchor (or a
 reference depth video). Without weights the engine draws them from a
 seeded ``torch.Generator``; plumbing and throughput are the same.
 
+The single-frame engines (:class:`SingleFrameEngine`: UniDepth, UniK3D,
+MoGe, DepthPro and their Depth-Anything stand-ins) run frame batches and
+write the depth video, with an ``_xfovs.json`` sidecar where asked.
+
 The DA3 engine (:class:`DA3PipelineEngine`, ``models.da3.DA3Engine``) runs
 multi-view windows and writes the depth video with its ``_xfovs.json`` and
 ``_transformations.json`` sidecars.
@@ -15,6 +19,7 @@ multi-view windows and writes the depth video with its ``_xfovs.json`` and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict
 
 import numpy as np
@@ -27,6 +32,7 @@ from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import video_depth as vd
 from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
 from metric_depth_video_toolbox_tpu_torch.ops import solvers
+from metric_depth_video_toolbox_tpu_torch.ops.image import resize_nchw
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 
 
@@ -228,6 +234,304 @@ def run_vda(color_video, max_depth=100.0, max_frames=-1, engine=None,
     return out
 
 
+def _tree_has(params, *path):
+    """Whether ``params`` (a Flax tree, with or without its ``params``
+    level, or a port state dict) holds the module at ``path``."""
+    if params is None:
+        return False
+    if from_jax.is_state_dict(params):
+        prefix = ".".join(path) + "."
+        return any(k.startswith(prefix) for k in params)
+    node = params.get("params", params)
+    for key in path:
+        if not hasattr(node, "get") or key not in node:
+            return False
+        node = node[key]
+    return True
+
+
+def _resize_frames(frames_u8, work_hw):
+    """uint8 (B, H, W, 3) -> float32 [0, 1] (B, h, w, 3) at ``work_hw``
+    (``jax.image.resize`` bilinear: antialiased when shrinking)."""
+    x = frames_u8.to(torch.float32).permute(0, 3, 1, 2) / 255.0
+    return resize_nchw(x, work_hw).permute(0, 2, 3, 1)
+
+
+class SingleFrameEngine:
+    """Per-frame metric depth engines, batched over frames, one
+    distinguishing behaviour per ``variant``:
+
+      'unidepth'  known-camera conditioning: rays from the mandatory
+                  ``xfov`` condition the model
+      'unik3d'    per-frame focal refit from the model's point map
+      'moge'      affine point map + mask: per-frame focal and z-shift
+                  recovered (``ops.geometry.recover_focal_shift``; a
+                  given ``xfov`` fixes the focal and conditions the
+                  stand-in), masked sky -> max_depth
+      'depthpro'  the model estimates each frame's FOV
+      'da'        plain metric depth (default)
+
+    Without a checkpoint each runs a Depth-Anything stand-in with the
+    variant's head. A tree that holds the real graph's modules switches
+    onto it: ``patch_encoder`` -> DepthPro (``depthpro_cfg``, default
+    DEPTHPRO_L, DEPTHPRO_TINY for size vitt), ``head.upsample0`` -> MoGe,
+    ``camera`` -> UniDepth-V2, ``angular`` -> UniK3D (``moge_cfg``,
+    ``unidepth_cfg``, L or TINY alike). ``params``: a Flax-layout tree
+    (``models.convert``, ``load_checkpoint``) or a port state dict; leaves
+    the model has no place for are ignored, as Flax ``apply`` ignores them
+    (their names in ``ignored_leaves``); None draws seeded weights
+    (``rng_seed``). The real DepthPro graph runs ``DEPTHPRO_MICRO_BATCH``
+    frames at a time (its float32 decode at 1536 x 1536 holds several GiB
+    a frame).
+    """
+
+    DEPTHPRO_MICRO_BATCH = 4
+
+    def __init__(self, size="vits", input_size=518, params=None,
+                 max_depth=100.0, rng_seed=0,
+                 data_parallel=False, variant="da", xfov=None, yfov=None,
+                 depthpro_cfg=None, quantize=None, moge_cfg=None,
+                 unidepth_cfg=None, device=None):
+        from metric_depth_video_toolbox_tpu_torch.models import depthpro
+        from metric_depth_video_toolbox_tpu_torch.models import moge
+        from metric_depth_video_toolbox_tpu_torch.models import unidepth
+
+        if quantize:
+            raise NotImplementedError("not ported yet: --quantize "
+                                      "(ROADMAP A13c)")
+        if data_parallel:
+            raise NotImplementedError("not ported yet: data-parallel "
+                                      "inference over several GPUs "
+                                      "(ROADMAP A16)")
+        if variant == "unidepth" and xfov is None:
+            raise ValueError("unidepth engine requires --xfov (reference "
+                             "unidepth_video.py makes FOV mandatory)")
+        self.variant = variant
+        self.xfov = xfov
+        self.yfov = yfov
+        tiny = size in ("vitt", "tiny")
+        self.cfg = da.preset(size, metric=True, max_depth=max_depth)
+        point_cfg = dataclasses.replace(
+            self.cfg, point_head=True,
+            dpt=dataclasses.replace(self.cfg.dpt, n_out=4, head_act="none"))
+        # the real graph a tree switches onto: (kind, its config)
+        self.graph = None
+        if variant == "depthpro" and _tree_has(params, "patch_encoder"):
+            self.graph = ("depthpro", depthpro_cfg or (
+                depthpro.DEPTHPRO_TINY if tiny else depthpro.DEPTHPRO_L))
+        elif variant == "moge" and _tree_has(params, "head", "upsample0"):
+            self.graph = ("moge", moge_cfg or (
+                moge.MOGE_TINY if tiny else moge.MOGE_L))
+            self.cfg = point_cfg
+        elif variant == "unidepth" and _tree_has(params, "camera"):
+            self.graph = ("unidepth", unidepth_cfg or (
+                unidepth.UNIDEPTH_TINY if tiny else unidepth.UNIDEPTH_L))
+        elif variant == "unik3d" and _tree_has(params, "angular"):
+            self.graph = ("unik3d", unidepth_cfg or (
+                unidepth.UNIDEPTH_TINY if tiny else unidepth.UNIDEPTH_L))
+            self.cfg = dataclasses.replace(self.cfg, point_head=True)
+        else:
+            if variant == "unidepth" or (variant == "moge" and xfov):
+                self.cfg = dataclasses.replace(self.cfg, k_condition=True)
+            if variant in ("moge", "unik3d"):
+                self.cfg = dataclasses.replace(
+                    point_cfg, k_condition=self.cfg.k_condition)
+            if variant == "depthpro" and not xfov:
+                self.cfg = dataclasses.replace(self.cfg, fov_head=True)
+        self.input_size = input_size
+        self.max_depth = max_depth
+        self.device = resolve_device(device)
+        self._params = params
+        self._seed = rng_seed
+        self._models = {}
+        self.ignored_leaves = []
+
+    def model(self, work_hw):
+        """The engine's model at a working resolution (built and loaded,
+        or seeded, on first use)."""
+        from metric_depth_video_toolbox_tpu_torch.models import depthpro
+        from metric_depth_video_toolbox_tpu_torch.models import moge
+        from metric_depth_video_toolbox_tpu_torch.models import unidepth
+
+        work_hw = tuple(work_hw)
+        if work_hw in self._models:
+            return self._models[work_hw]
+        kind, gcfg = self.graph or (None, None)
+        if kind == "depthpro":
+            mod = depthpro.DepthProNet(gcfg)
+        elif kind == "moge":
+            mod = moge.MoGeNet(gcfg, work_hw)
+        elif kind == "unidepth":
+            mod = unidepth.UniDepthNet(gcfg, work_hw)
+        elif kind == "unik3d":
+            mod = unidepth.UniK3DNet(gcfg, work_hw)
+        else:
+            mod = da.DepthAnything(self.cfg, work_hw)
+        if self._params is None:
+            vit_mod.seeded_init(mod, torch.Generator().manual_seed(
+                self._seed), (gcfg or self.cfg).vit.layerscale_init)
+        else:
+            if kind != "depthpro":
+                patch = (gcfg or self.cfg).vit.patch_size
+                _check_grid(self._params, mod, work_hw, patch)
+            from_jax.load_params(mod, self._params, ignore_unused=True,
+                                 ignored=self.ignored_leaves)
+        self._models[work_hw] = mod.to(self.device).eval()
+        return self._models[work_hw]
+
+    def share_weights(self, other, work_hw):
+        """Alias this engine's parameters at ``work_hw`` to ``other``'s
+        where names and shapes agree (the same draws a second seeded
+        engine would make); returns the number of tensors shared."""
+        mine = self.model(work_hw)
+        theirs = dict(other.model(work_hw).named_parameters())
+        n = 0
+        for name, p in mine.named_parameters():
+            q = theirs.get(name)
+            if q is not None and q.shape == p.shape:
+                p.data = q.data
+                n += 1
+        return n
+
+    def _depthpro(self, model, x, h, w):
+        """The real DepthPro step: the square working size, the HF
+        processor's normalization, canonical inverse depth scaled by
+        2 tan(fov / 2) and inverted."""
+        from metric_depth_video_toolbox_tpu_torch.models import depthpro
+
+        s = depthpro.working_size(self.graph[1])
+        x = depthpro.resize(x.to(torch.float32) / 255.0, (s, s))
+        x = (x - 0.5) / 0.5
+        invs, fovs = [], []
+        for i in range(0, x.shape[0], self.DEPTHPRO_MICRO_BATCH):
+            inv, fov = model(x[i:i + self.DEPTHPRO_MICRO_BATCH])
+            if fov is not None:
+                inv = inv * (2.0 * torch.tan(torch.deg2rad(fov) * 0.5)
+                             )[:, None, None]
+                fovs.append(fov)
+            invs.append(resize_nchw(inv[:, None], (h, w))[:, 0])
+        d = 1.0 / torch.clamp(torch.cat(invs), 1e-4, 1e4)
+        return (torch.clamp(d, max=self.max_depth),
+                torch.cat(fovs) if fovs else None)
+
+    def _rays(self, work_hw, b):
+        p = (self.graph[1] if self.graph else self.cfg).vit.patch_size
+        gh, gw = work_hw[0] // p, work_hw[1] // p
+        rays = torch.from_numpy(da.patch_center_rays(
+            self.xfov, gh, gw, self.yfov)).to(self.device)
+        return rays.expand(b, gh, gw, 3)
+
+    @torch.no_grad()
+    def _step(self, frames, h, w, work_hw):
+        """One batch: uint8 (B, H, W, 3) on the device -> (depth (B, H, W),
+        xfov (B,) or None)."""
+        from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
+
+        model = self.model(work_hw)
+        kind = self.graph[0] if self.graph else None
+        if kind == "depthpro":
+            return self._depthpro(model, frames, h, w)
+        b = frames.shape[0]
+        x = _resize_frames(frames, work_hw)
+        if kind == "unidepth":
+            d, _conf, _cam4 = model(x, self._rays(work_hw, b))
+            d = resize_nchw(torch.clamp(d, 0.0, self.max_depth)[:, None],
+                            (h, w))[:, 0]
+            return d, torch.full((b,), float(self.xfov), device=d.device)
+        cfg = self.cfg
+        if cfg.k_condition or cfg.fov_head:
+            rays = (self._rays(work_hw, b) if cfg.k_condition
+                    and self.xfov is not None else None)
+            out = model(x, rays)
+        else:
+            out = model(x)
+        wh, ww = work_hw
+        if cfg.point_head and self.variant == "moge":
+            pts, mlogit = out
+            fixed_f = (ww / wh / math.tan(math.radians(self.xfov) / 2.0)
+                       if self.xfov else None)
+            wts = torch.sigmoid(mlogit)
+            # frame by frame: (33, H, W) temporaries per frame
+            fs, ts = [], []
+            for i in range(b):
+                f, t, _ = geo.recover_focal_shift(pts[i], wts[i],
+                                                  focal=fixed_f)
+                fs.append(f)
+                ts.append(t)
+            fs, ts = torch.stack(fs), torch.stack(ts)
+            d = pts[..., 2] + ts[:, None, None]
+            d = torch.where(mlogit > 0, d, torch.full_like(d, math.nan))
+            xf = (torch.full(fs.shape, float(self.xfov), device=d.device)
+                  if self.xfov else
+                  geo.xfov_from_normalized_focal(fs, wh, ww))
+            d = torch.where(torch.isfinite(d), d,
+                            torch.full_like(d, self.max_depth))
+            d = torch.clamp(d, 0.0, self.max_depth)
+        elif cfg.point_head:
+            pts, mlogit = out
+            fx, _ = geo.estimate_focal_from_points(pts, wh, ww,
+                                                   torch.sigmoid(mlogit))
+            xf = torch.rad2deg(2.0 * torch.atan2(
+                torch.full_like(fx, ww / 2.0), torch.abs(fx) + 1e-6))
+            d = torch.clamp(pts[..., 2], 0.0, self.max_depth)
+        elif cfg.fov_head:
+            d, xf = out
+        else:
+            d, xf = out, None
+        return resize_nchw(d[:, None], (h, w))[:, 0], xf
+
+    def infer_video(self, frames_u8, batch=16, return_fov=False):
+        """(T, H, W, 3) uint8 -> (T, H, W) float32 metric depth (numpy);
+        with ``return_fov``, also the per-frame xfov (T,) or None. The last
+        batch is padded with its last frame."""
+        t, h, w = frames_u8.shape[:3]
+        work_hw = da.working_resolution(h, w, self.input_size,
+                                        self.cfg.vit.patch_size)
+        frames = torch.as_tensor(np.asarray(frames_u8))
+        outs, fovs = [], []
+        for i in range(0, t, batch):
+            chunk = frames[i:i + batch]
+            n = chunk.shape[0]
+            if n < batch:
+                chunk = torch.cat([chunk, chunk[-1:].expand(
+                    (batch - n,) + tuple(chunk.shape[1:]))])
+            d, xf = self._step(chunk.to(self.device), h, w, work_hw)
+            outs.append(d[:n].cpu())
+            if xf is not None:
+                fovs.append(xf[:n].to(torch.float32).cpu())
+        depth = torch.cat(outs).numpy()
+        if return_fov:
+            return depth, (torch.cat(fovs).numpy() if fovs else None)
+        return depth
+
+
+@register_engine("single_frame")
+def run_single_frame(color_video, max_depth=100.0, max_frames=-1,
+                     engine=None, xfov=None, save_xfovs=False,
+                     target_fps=-1, **kw):
+    """Color video -> ``<video>_depth.mkv`` (+ ``_xfovs.json`` with
+    ``save_xfovs``: the estimated per-frame FOV, else ``xfov`` or 50);
+    returns the depth video's path."""
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+
+    eng = engine or SingleFrameEngine(max_depth=max_depth, xfov=xfov, **kw)
+    frames, fps = vio.read_video_frames(color_video, max_frames=max_frames,
+                                        target_fps=target_fps)
+    depth, est_fovs = eng.infer_video(frames, return_fov=True)
+    out = color_video + "_depth.mkv"
+    vio.save_depth_video(depth, out, fps, max_depth)
+    if save_xfovs:
+        if est_fovs is not None:
+            sidecar.save_xfovs(out + "_xfovs.json",
+                               np.asarray(est_fovs, np.float32))
+        else:
+            xf = xfov if xfov is not None else 50.0
+            sidecar.save_xfovs(out + "_xfovs.json",
+                               np.full(frames.shape[0], xf, np.float32))
+    return out
+
+
 class DA3PipelineEngine:
     """DA3-class engine wrapper: depth + transformations + xfovs sidecars.
     ``size`` picks the DA3 preset (default ViT-L), ``input_size`` the
@@ -270,8 +574,12 @@ def run_da3(color_video, max_depth=100.0, max_frames=-1, engine=None, **kw):
 
 
 _RUN_KEYS = ("max_depth", "max_frames", "reference_depth_video", "xfov",
-             "yfov", "target_fps")
-_ENGINE_CLASSES = {"vda": VDAEngine, "da3": DA3PipelineEngine}
+             "yfov", "save_xfovs", "transformation_file", "target_fps")
+_ENGINE_CLASSES = {"vda": VDAEngine, "single_frame": SingleFrameEngine,
+                   "da3": DA3PipelineEngine}
+# the JAX package's engines not ported yet, with their ROADMAP item
+LATER_ENGINES = {"depthcrafter": "A13b", "geometrycrafter": "A13b",
+                  "mvsa": "A13c"}
 
 
 def run_batch(engine_name, videos_or_txt, **kw):
@@ -280,15 +588,17 @@ def run_batch(engine_name, videos_or_txt, **kw):
     from metric_depth_video_toolbox_tpu_torch.io import video as vio
 
     if engine_name not in ENGINES:
+        item = LATER_ENGINES.get(engine_name, "A13")
         raise NotImplementedError(f"not ported yet: depth engine "
-                                  f"{engine_name!r} (ROADMAP A13)")
+                                  f"{engine_name!r} (ROADMAP {item})")
     fn = ENGINES[engine_name]
     run_kw = {k: v for k, v in kw.items() if k in _RUN_KEYS}
     eng_kw = {k: v for k, v in kw.items() if k not in _RUN_KEYS}
     if "max_depth" in kw:
         eng_kw["max_depth"] = kw["max_depth"]
-    if engine_name == "da3":
-        # the engine itself needs the FOV (ray conditioning)
+    if engine_name in ("single_frame", "da3"):
+        # the engine itself needs the FOV (ray conditioning, the focal
+        # solve)
         for k in ("xfov", "yfov"):
             if kw.get(k) is not None:
                 eng_kw[k] = kw[k]

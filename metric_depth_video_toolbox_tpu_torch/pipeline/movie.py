@@ -15,9 +15,12 @@ Seven steps with the JAX package's file contract and resume by existence
   7. concatenate into ``<movie>_SBS.mkv`` and tag StereoMode
 
 Per-scene ``Engine``, ``Infill`` and ``Convergence`` overrides come from
-extra columns of the scene CSV. Depth engines: ``vda`` and ``da3``; the
-JAX package's other engines raise naming ROADMAP A13, and an unknown name
-falls back with the JAX package's warning. ``parallel`` > 1 (scene
+extra columns of the scene CSV. Depth engines: ``vda``, ``da3`` and the
+single-frame engines (``unidepth``, ``unik3d``, ``moge``, ``depthpro``,
+``single_frame``; two passes per scene, the second locked to the first's
+median FOV); depthcrafter, geometrycrafter and mvsa raise naming their
+ROADMAP item, and an unknown name falls back with the JAX package's
+warning. ``parallel`` > 1 (scene
 renders on worker threads) raises naming A16.
 
 Every device step runs on ``device`` (CUDA unless the caller asks for the
@@ -30,6 +33,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import numpy as np
 
 from metric_depth_video_toolbox_tpu_torch.io import sidecar
 from metric_depth_video_toolbox_tpu_torch.io import video as vio
@@ -101,31 +106,71 @@ def step1_create_scene_videos(color_video, scenes):
 
 
 def _depth_engine(scene, engine):
-    """The port's engine for a scene (its CSV override, else ``engine``),
-    as the JAX package resolves the name."""
+    """(engine, variant) of a scene (its CSV override, else ``engine``), as
+    the JAX package resolves the name: the single-frame names map onto
+    ``single_frame`` with their variant."""
     eng = scene.get("Engine", "") or engine
     if eng == "videoanythingmetric":
-        return "vda"
+        return "vda", "da"
+    if eng in _SINGLE_FRAME_NAMES:
+        return "single_frame", eng if eng != "single_frame" else "da"
     if eng in depth_stage.ENGINES:
-        return eng
-    if eng in REFERENCE_ENGINES or eng in _SINGLE_FRAME_NAMES:
-        raise NotImplementedError(f"not ported yet: depth engine {eng!r} "
-                                  f"in the movie (ROADMAP A13)")
+        return eng, "da"
+    if eng in REFERENCE_ENGINES:
+        _not_ported(eng)
     known = sorted(set(REFERENCE_ENGINES) | set(_SINGLE_FRAME_NAMES))
     print(f"WARNING: scene {scene['Scene Number']}: unknown Engine "
           f"override '{eng}' (known: {', '.join(known)}); falling back to "
           f"'{engine}'")
     fallback = engine if engine in REFERENCE_ENGINES else "vda"
     if fallback not in depth_stage.ENGINES:
-        raise NotImplementedError(f"not ported yet: depth engine "
-                                  f"{fallback!r} in the movie (ROADMAP A13)")
-    return fallback
+        _not_ported(fallback)
+    return fallback, "da"
+
+
+def _not_ported(eng):
+    item = depth_stage.LATER_ENGINES.get(eng, "A13")
+    raise NotImplementedError(f"not ported yet: depth engine {eng!r} in "
+                              f"the movie (ROADMAP {item})")
+
+
+def _two_pass_single_frame(videos, variant, max_depth, engine_kwargs):
+    """The single-frame engines run twice per scene: a FOV pass (the
+    ``unik3d`` variant), then the scene's variant locked to the median of
+    its per-frame FOVs, with the ``_xfovs.json`` sidecar. The second
+    engine shares the first's weights where names and shapes agree."""
+    from metric_depth_video_toolbox_tpu_torch.models import \
+        depth_anything as da
+
+    kw = dict(engine_kwargs or {})
+    kw.pop("xfov", None)
+    for v in videos:
+        out = v + "_depth.mkv"
+        if vio.is_valid_video(out):
+            continue
+        frames, _fps = vio.read_video_frames(v)
+        est = depth_stage.SingleFrameEngine(max_depth=max_depth,
+                                            variant="unik3d", **kw)
+        _, fovs = est.infer_video(frames, return_fov=True)
+        xfov = float(np.median(fovs)) if fovs is not None else 60.0
+        print(f"{v}: two-pass FOV lock at xfov={xfov:.1f} deg")
+        eng = depth_stage.SingleFrameEngine(
+            max_depth=max_depth, variant="unik3d" if variant == "da"
+            else variant, xfov=xfov, **kw)
+        eng.share_weights(est, da.working_resolution(
+            frames.shape[1], frames.shape[2], eng.input_size,
+            eng.cfg.vit.patch_size))
+        del est
+        depth_stage.run_single_frame(v, max_depth=max_depth, engine=eng,
+                                     xfov=xfov, save_xfovs=True)
+        print(f"depth video saved: {out}")
 
 
 def step2_estimate_depth(scenes, engine="vda", max_depth=100.0,
                          engine_kwargs=None, device=None):
     """Depth for every scene without a depth video; one engine instance
-    per engine type for the whole movie."""
+    per engine type for the whole movie, two per scene for the
+    single-frame engines (:func:`_two_pass_single_frame`)."""
     by_engine = {}
     for scene in scenes:
         if scene["finished"] or vio.is_valid_video(scene["depth_video_file"]):
@@ -134,7 +179,10 @@ def step2_estimate_depth(scenes, engine="vda", max_depth=100.0,
             scene["scene_video_file"])
     kw = dict(engine_kwargs or {})
     kw.setdefault("device", device)
-    for eng, videos in by_engine.items():
+    for (eng, variant), videos in by_engine.items():
+        if eng == "single_frame":
+            _two_pass_single_frame(videos, variant, max_depth, kw)
+            continue
         depth_stage.run_batch(eng, videos, max_depth=max_depth, **kw)
 
 

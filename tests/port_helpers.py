@@ -9,6 +9,9 @@
   initializers by leaf name and then perturbed, so that biases and norms
   are not at their trivial values. It stands in for a jitted ``init``,
   which costs 10-20 s of compilation per model on the CPU.
+- ``float32_presets``, ``upstream_style_point_maps``: the single-frame
+  engines of both packages in float32, and their point heads' output
+  mapped onto upstream-style point maps (for a clear focal solve).
 """
 
 import jax
@@ -61,3 +64,85 @@ def init_like(model, seed, *inputs, **kwargs):
     return perturbed_like(jax.eval_shape(
         lambda: model.init(jax.random.PRNGKey(seed), *inputs, **kwargs)),
         seed)
+
+
+def float32_presets(monkeypatch, *modules):
+    """``depth_anything.preset`` of each module returns its configuration
+    in float32 (ViT and DPT head), so that engines that build their model
+    from a preset compare in float32."""
+    import dataclasses
+
+    for mod in modules:
+        def preset(*a, _orig=mod.preset, **kw):
+            c = _orig(*a, **kw)
+            return dataclasses.replace(
+                c, vit=dataclasses.replace(c.vit, dtype="float32"),
+                dpt=dataclasses.replace(c.dpt, dtype="float32"))
+        monkeypatch.setattr(mod, "preset", preset)
+
+
+# the pinhole that upstream-style point maps come from: normalized focal
+# and z offset (ops/geometry.py's normalized_uv convention)
+UPSTREAM_FOCAL, UPSTREAM_SHIFT = 1.2, 1.0
+
+
+def upstream_points_jax(pts, mlogit):
+    """A raw point map (B, H, W, 3) -> one like an upstream model's: a
+    pinhole's (x, y, z) over depths of 2-3.5 taken from the raw z, with
+    the raw x, y as 1 cm noise, z offset by -UPSTREAM_SHIFT. With random
+    weights a raw map reprojects onto nothing, the focal and shift solve
+    has no clear minimum, and float32 rounding picks between near-equal
+    candidates; on these maps it has one."""
+    import jax.numpy as jnp
+
+    from metric_depth_video_toolbox_tpu.ops import geometry as geo
+
+    uv = geo.normalized_uv(pts.shape[-3], pts.shape[-2])
+    z = 2.0 + 1.5 * jax.nn.sigmoid(pts[..., 2])
+    x = uv[..., 0] * z / UPSTREAM_FOCAL + 0.01 * jnp.tanh(pts[..., 0])
+    y = uv[..., 1] * z / UPSTREAM_FOCAL + 0.01 * jnp.tanh(pts[..., 1])
+    return jnp.stack([x, y, z - UPSTREAM_SHIFT], -1), mlogit
+
+
+def upstream_points_torch(pts, mlogit):
+    """:func:`upstream_points_jax` in PyTorch."""
+    from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
+
+    uv = geo.normalized_uv(pts.shape[-3], pts.shape[-2], device=pts.device)
+    z = 2.0 + 1.5 * torch.sigmoid(pts[..., 2])
+    x = uv[..., 0] * z / UPSTREAM_FOCAL + 0.01 * torch.tanh(pts[..., 0])
+    y = uv[..., 1] * z / UPSTREAM_FOCAL + 0.01 * torch.tanh(pts[..., 1])
+    return torch.stack([x, y, z - UPSTREAM_SHIFT], -1), mlogit
+
+
+class _UpstreamStyle(torch.nn.Module):
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, *args):
+        return upstream_points_torch(*self.inner(*args))
+
+
+def upstream_style_point_maps(monkeypatch, jdepth, tdepth):
+    """Both packages' single-frame engines with a point head (MoGe, UniK3D
+    and their stand-ins) see their model's output through
+    :func:`upstream_points_jax` / :func:`upstream_points_torch`."""
+    jinit = jdepth.SingleFrameEngine.__init__
+
+    def init(self, *a, **kw):
+        jinit(self, *a, **kw)
+        if self.cfg.point_head:
+            apply = self._apply
+            self._apply = lambda params, *args: upstream_points_jax(
+                *apply(params, *args))
+    monkeypatch.setattr(jdepth.SingleFrameEngine, "__init__", init)
+
+    tmodel = tdepth.SingleFrameEngine.model
+
+    def model(self, work_hw):
+        m = tmodel(self, work_hw)
+        if self.cfg.point_head and not isinstance(m, _UpstreamStyle):
+            m = self._models[tuple(work_hw)] = _UpstreamStyle(m)
+        return m
+    monkeypatch.setattr(tdepth.SingleFrameEngine, "model", model)

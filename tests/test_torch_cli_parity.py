@@ -3,6 +3,8 @@ the reference is accepted (ported, or the not-ported exit), ``engine
 <name>`` dispatches as the reference does, and the video writer resizes a
 frame of another size as the reference's does."""
 
+import argparse
+
 import numpy as np
 import pytest
 
@@ -49,7 +51,8 @@ def test_engine_lists_the_reference_engines(capsys):
     assert "da3" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name", ["unidepth", "moge", "mvsa"])
+@pytest.mark.parametrize("name", ["depthcrafter", "geometrycrafter",
+                                  "mvsa"])
 def test_engine_unported_exits_naming_a13(name):
     with pytest.raises(SystemExit, match="A13"):
         tmain.main(["engine", name, "--color_video", "x.mkv"])
@@ -76,34 +79,66 @@ def test_video_writer_resizes_like_reference(tmp_path):
     np.testing.assert_array_equal(out["torch"][3], frames[3])
 
 
-def _flags(parser):
-    """{option string: (dest, default)} of a parser's flags."""
-    return {opt: (a.dest, a.default) for a in parser._actions
-            for opt in a.option_strings if opt not in ("-h", "--help")}
+def _flags(parser, verb=""):
+    """{option string: (dest, default)} of a parser's flags; a subcommand
+    parser's flags keyed "<verb> <option>"."""
+    out = {}
+    for a in parser._actions:
+        if isinstance(a, argparse._SubParsersAction):
+            for name, sub in a.choices.items():
+                out.update(_flags(sub, f"{verb}{name} "))
+        for opt in a.option_strings:
+            if opt not in ("-h", "--help"):
+                out[verb + opt] = (a.dest, a.default)
+    return out
 
 
-def _parsers(command):
+class _Parsed(Exception):
+    """Carries the parser that an engine's main was about to run."""
+
+
+def _engine_parser(module, name, monkeypatch):
+    def grab(self, *a, **kw):
+        raise _Parsed(self)
+    with monkeypatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(_Parsed) as e:
+            module.MAINS[name]([])
+    return e.value.args[0]
+
+
+def _parsers(command, monkeypatch):
     import importlib
 
+    pkgs = ("metric_depth_video_toolbox_tpu",
+            "metric_depth_video_toolbox_tpu_torch")
+    if command.startswith("engine "):
+        return tuple(_engine_parser(importlib.import_module(
+            f"{pkg}.cli.depth_engines"), command.split()[1], monkeypatch)
+            for pkg in pkgs)
     names = {"movie": "movie_2_3d", "mask": "generate_video_mask",
              "convergence": "find_convergence_depth", "infill": "infill",
              "depth": "video_metric_convert",
-             "download-weights": "download_weights", "view": "view_depthfile"}
+             "download-weights": "download_weights", "view": "view_depthfile",
+             "split-sbs": "split_sbs_video", "inpaint": "apply_inpainting",
+             "project": "project"}
     return tuple(importlib.import_module(f"{pkg}.cli.{names[command]}")
-                 .build_parser() for pkg in (
-                     "metric_depth_video_toolbox_tpu",
-                     "metric_depth_video_toolbox_tpu_torch"))
+                 .build_parser() for pkg in pkgs)
 
 
 # flags of the reference parsers that the port leaves out; each is exempt
 # from parity only with a case in test_unported_options_raise below
 UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": (),
-                  "depth": (), "download-weights": (), "view": ()}
+                  "depth": (), "download-weights": (), "view": (),
+                  "split-sbs": (), "inpaint": (), "project": (),
+                  "engine unidepth": (), "engine unik3d": (),
+                  "engine moge": (), "engine depthpro": (),
+                  "engine videoanythingmetric": ()}
 
 
 @pytest.mark.parametrize("command", sorted(UNPORTED_FLAGS))
-def test_port_parser_accepts_every_reference_flag(command):
-    ref, port = _parsers(command)
+def test_port_parser_accepts_every_reference_flag(command, monkeypatch):
+    ref, port = _parsers(command, monkeypatch)
     want, got = _flags(ref), _flags(port)
     for opt, (dest, default) in want.items():
         if opt in UNPORTED_FLAGS[command]:
@@ -116,7 +151,7 @@ def test_port_parser_accepts_every_reference_flag(command):
 UNPORTED_OPTIONS = [
     ("movie", ["--parallel", "2"], "A16"),
     ("movie", ["--quantize", "int8"], "A13"),
-    ("movie", ["--depth_engine", "unidepth"], "A13"),
+    ("movie", ["--depth_engine", "mvsa"], "A13"),
 ]
 
 

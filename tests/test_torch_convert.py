@@ -325,7 +325,7 @@ def test_unknown_kind_and_registry_match_jax(tmp_path):
     kinds = {e["kind"] for e in tconvert.WEIGHT_REGISTRY.values()}
     assert kinds - set(tconvert._LATER) == {
         "video_depth", "dinov2", "da3", "wan", "svd_unet", "m2svid_sgm",
-        "u2net", "clip_vision"}
+        "u2net", "clip_vision", "moge", "unidepth", "unik3d", "depthpro_hf"}
 
 
 # --------------------------------------------------- download_weights ----

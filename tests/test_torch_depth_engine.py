@@ -156,7 +156,7 @@ def test_unported_engine_options_raise():
     with pytest.raises(NotImplementedError, match="A16"):
         tdepth.VDAEngine(data_parallel=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
-        tdepth.run_batch("single_frame", "x.mp4")
+        tdepth.run_batch("depthcrafter", "x.mp4")
     with pytest.raises(NotImplementedError, match="A13"):
         tdepth.DA3PipelineEngine(quantize="int8", device="cpu")
 

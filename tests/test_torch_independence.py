@@ -1,7 +1,8 @@
 """The port stands alone: no module of it (nor chip_smoke.py) imports JAX,
-Flax, ``msgpack`` or the JAX package; it imports and runs its in-memory
-path, and writes and reads a converted checkpoint, with those (and
-OpenCV) blocked; and it runs on the CPU only when asked to."""
+Flax, ``msgpack`` or the JAX package; it imports every module and runs its
+in-memory path (the single-frame engines too, on their stand-ins and on
+real-graph trees), and writes and reads a converted checkpoint, with those
+(and OpenCV) blocked; and it runs on the CPU only when asked to."""
 
 import ast
 import os
@@ -130,6 +131,25 @@ try:
     convert.convert_torch_file("raft.pth", "raft")
 except NotImplementedError as e:
     assert "A14" in str(e)
+from metric_depth_video_toolbox_tpu_torch.models import moge, unidepth
+from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
+clip = np.zeros((2, 32, 48, 3), np.uint8)
+clip[:, :, 24:] = 200
+for variant, xfov, tree in (
+        ("moge", None, None), ("unidepth", 60.0, None),
+        ("depthpro", None, None), ("unik3d", None, None),
+        ("moge", 60.0, from_jax.to_flax_params(
+            moge.MoGeNet(moge.MOGE_TINY, (28, 42)))),
+        ("unik3d", None, from_jax.to_flax_params(
+            unidepth.UniK3DNet(unidepth.UNIDEPTH_TINY, (28, 42))))):
+    sf = dstage.SingleFrameEngine(size="vitt", input_size=28, params=tree,
+                                  variant=variant, xfov=xfov, device="cpu")
+    d, f = sf.infer_video(clip, return_fov=True)
+    assert d.shape == (2, 32, 48) and np.isfinite(d).all(), variant
+    assert (sf.graph is not None) == (tree is not None)
+from metric_depth_video_toolbox_tpu_torch.cli import main as cli_main
+for name in ("split-sbs", "inpaint", "project"):
+    importlib.import_module(cli_main.SUBCOMMANDS[name][0])
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 assert sys.modules["msgpack"] is None
 print("OK")

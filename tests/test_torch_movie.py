@@ -514,7 +514,7 @@ def test_movie_step6_diffusion_matches_jax(movie_runs, tmp_path,
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"parallel": 2}, "A16"),
-    ({"engine": "unidepth"}, "A13"),
+    ({"engine": "geometrycrafter"}, "A13"),
     ({"engine": "depthcrafter"}, "A13"),
     ({"engine_kwargs": {"quantize": "int8"}}, "A13")])
 def test_movie_unported_options_raise(tmp_path, kwargs, match):
