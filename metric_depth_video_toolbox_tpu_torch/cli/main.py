@@ -4,8 +4,8 @@
                        -> stereo -> infill -> <movie>_SBS.mkv
   mdvt-torch depth     video_metric_convert (VDA engine)
   mdvt-torch engine    per-engine depth CLIs (unidepth, unik3d, moge,
-                       depthpro, videoanythingmetric, da3; the diffusion and
-                       MVS engines are not ported yet)
+                       depthpro, videoanythingmetric, da3, depthcrafter,
+                       geometrycrafter, mvsa)
   mdvt-torch da3       DA3 multi-view depth + poses + xfovs (= engine da3)
   mdvt-torch stereo    stereo_rerender (SBS, Touchly, VR180, background)
   mdvt-torch mask      generate_video_mask (U²-Net subject masks)
@@ -18,6 +18,8 @@
   mdvt-torch inpaint   inpaint a static overlay region in every frame
   mdvt-torch project   headless project manager (create, status, set,
                        split, run)
+  mdvt-torch upscale   upscale a low-res metric depth video with the colour
+                       video as guidance (PromptDA)
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
@@ -54,13 +56,14 @@ SUBCOMMANDS = {
     "inpaint": ("metric_depth_video_toolbox_tpu_torch.cli.apply_inpainting",
                 "main"),
     "project": ("metric_depth_video_toolbox_tpu_torch.cli.project", "main"),
+    "upscale": ("metric_depth_video_toolbox_tpu_torch.cli.upscale_depth",
+                "main"),
 }
 
 # the JAX package's other subcommands -> the ROADMAP item that ports them
 NOT_PORTED = {"track": "A14", "align": "A14", "flow": "A14", "slam": "A14",
               "export": "A15", "analyse-tracking": "A15",
-              "analyse-depth": "A15", "gui": "A15", "upscale": "A13c",
-              "bench": "A9"}
+              "analyse-depth": "A15", "gui": "A15", "bench": "A9"}
 
 
 def main(argv=None):

@@ -1,11 +1,14 @@
 """CLI: full 2D movie -> 3D SBS movie (the port of ``cli/movie_2_3d.py``,
 the same flags and defaults).
 
-``--depth_engine`` vda (default), da3, videoanythingmetric, or a
+``--depth_engine`` vda (default), da3, videoanythingmetric, a
 single-frame engine (unidepth, unik3d, moge, depthpro, single_frame: two
-passes per scene, the second locked to the first's median FOV);
-depthcrafter, geometrycrafter, mvsa, ``--quantize int8`` and
-``--parallel`` > 1 raise NotImplementedError naming their ROADMAP item.
+passes per scene, the second locked to the first's median FOV),
+depthcrafter (after a single-frame reference pass per scene),
+geometrycrafter (on a MoGe prior) or mvsa (which needs a camera track the
+movie has not: the single-frame engine runs instead, with a message).
+``--quantize int8`` runs the depth stage's ViT matmuls in int8.
+``--parallel`` > 1 raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ def build_parser(parser=None):
     p.add_argument("--input_size", type=int, default=518)
     p.add_argument("--quantize", choices=("none", "int8"), default="none",
                    help="int8 = quantized backbone matmuls for the depth "
-                        "stage (not ported yet)")
+                        "stage (ops/quant.py)")
     p.add_argument("--infill_engine", type=str, default="basic",
                    choices=["none", "basic", "diffusion"])
     p.add_argument("--xfov", type=float)

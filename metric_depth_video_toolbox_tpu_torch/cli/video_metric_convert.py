@@ -5,8 +5,8 @@ The same flags and defaults as the JAX package's
 protocol. ``--checkpoint`` reads a converted VDA checkpoint
 (``models.convert.convert_vda`` of an upstream
 ``video_depth_anything_vit*.pth``, saved as ``.msgpack`` or ``.pkl``);
-``--profile DIR`` writes a Chrome trace of the run into DIR.
-Flags whose path is not ported yet raise NotImplementedError.
+``--profile DIR`` writes a Chrome trace of the run into DIR;
+``--quantize int8`` runs the ViT blocks' matmuls in int8.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def build_parser(parser=None):
                    help="full float32 inference (default is bfloat16)")
     p.add_argument("--quantize", choices=("none", "int8"), default="none",
                    help="int8 = dynamically quantized backbone matmuls "
-                        "(not ported yet)")
+                        "(ops/quant.py)")
     p.add_argument("--window", type=int, default=None)
     p.add_argument("--rolling_average", type=int, default=0, metavar="N",
                    help="rolling-average affine->metric alignment over an "

@@ -10,9 +10,10 @@ tree made here equals the JAX package's leaf for leaf. Conventions:
   torch LayerNorm weight / bias   -> scale / bias
 
 Covered: DINOv2 (original and HF layouts), the DPT heads, DA-V2, DA3,
-Video-Depth-Anything, MoGe, UniDepth-V2, UniK3D, DepthPro (HF layout),
-Wan (InSpatio-World), U²-Net, the SVD family (StereoCrafter UNet and
-VAE, the m2svid sgm checkpoint) and the CLIP vision tower. The converters
+Video-Depth-Anything, PromptDA (HF layout), MoGe, UniDepth-V2, UniK3D,
+DepthPro (HF layout), Wan (InSpatio-World), U²-Net, the SVD family
+(StereoCrafter UNet and VAE, GeometryCrafter's point-map VAE, the m2svid
+sgm checkpoint) and the CLIP vision tower. The converters
 of engines not ported yet wait for their ROADMAP items
 (``convert_torch_file`` names them). Files are read and written by
 ``io.checkpoint`` (Flax's msgpack or a pickle), without JAX.
@@ -252,6 +253,24 @@ def convert_da2_hf(state_dict, vit_cfg, grid_hw=None):
         "backbone": backbone,
         "head": convert_dpt_head_hf(state_dict),
     }}
+
+
+def convert_promptda_hf(state_dict, vit_cfg, grid_hw=None):
+    """HF-layout PromptDepthAnything checkpoint (e.g.
+    depth-anything/prompt-depth-anything-vitl-hf) -> our PromptDA params:
+    the Depth-Anything tree plus each fusion level's prompt branch
+    (fusion_stage.layers.N.prompt_depth_layer.convolution{1,2,3})."""
+    out = convert_da2_hf(state_dict, vit_cfg, grid_hw)
+    head = out["params"]["head"]
+    for ours, theirs in (("fusion3", 0), ("fusion2", 1), ("fusion1", 2),
+                         ("fusion0", 3)):
+        pl = f"neck.fusion_stage.layers.{theirs}.prompt_depth_layer"
+        head[ours]["prompt"] = {
+            "conv1": conv(state_dict, pl + ".convolution1"),
+            "conv2": conv(state_dict, pl + ".convolution2"),
+            "conv3": conv(state_dict, pl + ".convolution3"),
+        }
+    return out
 
 
 def convert_da2(state_dict, vit_cfg):
@@ -1019,10 +1038,11 @@ def convert_depthpro_hf(state_dict, cfg):
 def convert_torch_file(path, kind, cfg=None):
     """Load a torch checkpoint file (CPU) and convert by ``kind``, with the
     JAX package's dispatch. As there, ``cfg`` None reaches the converters
-    that need one (``dinov2``, ``da2``, ``da2_hf``, ``vda``, ``svd_unet``,
-    ``svd_vae``, ``clip_vision``), which then fail on ``cfg.<field>``. The
-    kinds of engines not ported yet raise ``NotImplementedError`` naming
-    their ROADMAP item."""
+    that need one (``dinov2``, ``da2``, ``da2_hf``, ``promptda_hf``,
+    ``vda``, ``svd_unet``, ``svd_vae``, ``clip_vision``), which then fail on
+    ``cfg.<field>``; ``pmap_vae`` defaults to ``PMAP_VAE``. The kinds of
+    engines not ported yet raise ``NotImplementedError`` naming their
+    ROADMAP item."""
     import torch
     if kind in _LATER:
         raise NotImplementedError(
@@ -1053,6 +1073,8 @@ def convert_torch_file(path, kind, cfg=None):
         return convert_wan(sd, cfg or wan.WAN_1_3B)
     if kind == "da2_hf":
         return convert_da2_hf(sd, cfg)
+    if kind == "promptda_hf":
+        return convert_promptda_hf(sd, cfg)
     if kind == "u2net":
         return convert_u2net(sd, cfg)
     if kind in ("vda", "video_depth"):
@@ -1063,6 +1085,9 @@ def convert_torch_file(path, kind, cfg=None):
         return convert_m2svid_sgm(sd, cfg)
     if kind == "svd_vae":
         return convert_svd_vae(sd, cfg)
+    if kind == "pmap_vae":
+        from metric_depth_video_toolbox_tpu_torch.models import svd as svdm
+        return convert_svd_vae(sd, cfg or svdm.PMAP_VAE)
     if kind == "clip_vision":
         return convert_clip_vision(sd, cfg)
     if kind == "depthpro_hf":
@@ -1072,8 +1097,7 @@ def convert_torch_file(path, kind, cfg=None):
 
 
 # the JAX package's other kinds, with the ROADMAP item that ports them
-_LATER = {"promptda_hf": "A13", "pmap_vae": "A13",
-          "droid": "A14", "megasam": "A14", "raft": "A14",
+_LATER = {"droid": "A14", "megasam": "A14", "raft": "A14",
           "cotracker3": "A14"}
 
 

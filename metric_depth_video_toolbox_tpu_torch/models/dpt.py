@@ -12,6 +12,7 @@ resize layers ``resize0`` (ConvTranspose 4x4, stride 4), ``resize1``
 ``align_corners=True`` resizes in the fusions and the head, and a x2
 upsample in ``fusion0``; with ``fast_head=False`` the head's 3x3 conv
 runs after the full-resolution upsample, in the upstream order.
+PromptDA's head adds a prompt branch to every fusion (``prompt=True``).
 """
 
 from __future__ import annotations
@@ -131,18 +132,23 @@ def reassemble(module, cfg: DPTConfig, i, y, grid_hw):
     return _resize(y, (int(gh * SCALES[i]), int(gw * SCALES[i])))
 
 
-def fuse(module, cfg: DPTConfig, pyr, between=None):
+def fuse(module, cfg: DPTConfig, pyr, between=None, prompt=None):
     """The four fusions, coarse to fine; ``between(i, x)`` (if given) runs
-    on the output of ``fusion3`` (i = 0) and ``fusion2`` (i = 1)."""
+    on the output of ``fusion3`` (i = 0) and ``fusion2`` (i = 1).
+    ``prompt``: PromptDA's normalized prompt depth (B, h, w, 1), which
+    every fusion's prompt branch adds in."""
     def hook(i, x):
         return between(i, x) if between is not None else x
 
-    x = hook(0, module.fusion3(pyr[3], out_hw=pyr[2].shape[1:3]))
-    x = hook(1, module.fusion2(x, skip=pyr[2], out_hw=pyr[1].shape[1:3]))
-    x = module.fusion1(x, skip=pyr[1], out_hw=pyr[0].shape[1:3])
+    x = hook(0, module.fusion3(pyr[3], out_hw=pyr[2].shape[1:3],
+                               prompt=prompt))
+    x = hook(1, module.fusion2(x, skip=pyr[2], out_hw=pyr[1].shape[1:3],
+                               prompt=prompt))
+    x = module.fusion1(x, skip=pyr[1], out_hw=pyr[0].shape[1:3],
+                       prompt=prompt)
     last_hw = ((pyr[0].shape[1] * 2, pyr[0].shape[2] * 2)
                if cfg.torch_resize else None)
-    return module.fusion0(x, skip=pyr[0], out_hw=last_hw)
+    return module.fusion0(x, skip=pyr[0], out_hw=last_hw, prompt=prompt)
 
 
 class ResidualConvUnit(nn.Module):
@@ -157,28 +163,54 @@ class ResidualConvUnit(nn.Module):
         return x + y
 
 
+class PromptLayer(nn.Module):
+    """PromptDA's depth-prompt branch of a fusion level: conv-relu-conv-
+    relu-conv over the normalized prompt depth at the level's size."""
+
+    def __init__(self, cfg: DPTConfig):
+        super().__init__()
+        f, dt = cfg.features, cfg.compute_dtype
+        self.conv1 = Conv(1, f, 3, dt)
+        self.conv2 = Conv(f, f, 3, dt)
+        self.conv3 = Conv(f, f, 3, dt)
+
+    def forward(self, p):
+        return self.conv3(torch.relu(self.conv2(torch.relu(self.conv1(p)))))
+
+
 class FeatureFusion(nn.Module):
-    def __init__(self, cfg: DPTConfig, has_skip: bool):
+    def __init__(self, cfg: DPTConfig, has_skip: bool, prompt=False):
         super().__init__()
         self.up = upsample(cfg)
         if has_skip:
             self.rcu1 = ResidualConvUnit(cfg)
         self.rcu2 = ResidualConvUnit(cfg)
+        if prompt:
+            self.prompt = PromptLayer(cfg)
         self.project = Conv(cfg.features, cfg.features, 1, cfg.compute_dtype)
 
-    def forward(self, x, skip=None, out_hw=None):
+    def forward(self, x, skip=None, out_hw=None, prompt=None):
         if skip is not None:
             x = x + self.rcu1(skip)
         x = self.rcu2(x)
+        if prompt is not None:
+            # to the level's size: half-pixel bilinear, no antialias
+            p = F.interpolate(prompt.permute(0, 3, 1, 2).to(torch.float32),
+                              size=tuple(x.shape[1:3]), mode="bilinear",
+                              align_corners=False)
+            x = x + self.prompt(p.permute(0, 2, 3, 1).to(x.dtype))
         if out_hw is not None:
             x = self.up(x, out_hw)
         return self.project(x)
 
 
 class DPTHead(nn.Module):
-    """4 ViT feature maps (B, gh, gw, D) -> (B, gh*patch, gw*patch, n_out)."""
+    """4 ViT feature maps (B, gh, gw, D) -> (B, gh*patch, gw*patch, n_out).
+    ``prompt``: every fusion has PromptDA's prompt branch, and ``forward``
+    takes the normalized prompt depth."""
 
-    def __init__(self, cfg: DPTConfig, embed_dim: int, patch_size: int = 14):
+    def __init__(self, cfg: DPTConfig, embed_dim: int, patch_size: int = 14,
+                 prompt=False):
         super().__init__()
         self.cfg = cfg
         self.patch_size = patch_size
@@ -188,12 +220,12 @@ class DPTHead(nn.Module):
             self.add_module(f"scratch{i}", Conv(ch, f, 3, dt, bias=False))
         add_resize_layers(self, cfg)
         for i in range(4):
-            self.add_module(f"fusion{i}", FeatureFusion(cfg, i != 3))
+            self.add_module(f"fusion{i}", FeatureFusion(cfg, i != 3, prompt))
         self.head_conv1 = Conv(f, f // 2, 3, dt)
         self.head_conv2 = Conv(f // 2, 32, 3, dt)
         self.head_conv3 = Conv(32, cfg.n_out, 1, torch.float32)
 
-    def forward(self, feats):
+    def forward(self, feats, prompt=None):
         c = self.cfg
         _, gh, gw, _ = feats[0].shape
         pyr = []
@@ -201,7 +233,7 @@ class DPTHead(nn.Module):
             y = reassemble(self, c, i, getattr(self, f"project{i}")(f),
                            (gh, gw))
             pyr.append(getattr(self, f"scratch{i}")(y))
-        x = self.head_conv1(fuse(self, c, pyr))
+        x = self.head_conv1(fuse(self, c, pyr, prompt=prompt))
         full_hw = (gh * self.patch_size, gw * self.patch_size)
         up = upsample(c)
         if c.fast_head:

@@ -23,7 +23,10 @@ the layout changes of each leaf:
   ``position_embedding`` as they are.
 
 Covers the SVD-class diffusion models (``models.diffusion``,
-``models.svd``, ``models.clip``), ViT, DPTHead, DPTHeadTemporal,
+``models.svd``, ``models.clip``; GeometryCrafter's point-map VAE is
+``SVDVAEEncoder`` / ``SVDVAEDecoder``), ViT (its int8 ``QDense`` layers
+hold a Dense's leaves), DPTHead (with PromptDA's ``prompt`` branches),
+PromptDA, MVSNet, DPTHeadTemporal,
 VideoDepthAnything, DepthAnything (with its ``ray_embed``, ``fov_fc``,
 ``fov_out``), DA3 (``backbone``, ``head.depth``, ``head.ray``,
 ``ray_embed``), MoGeNet, UniDepthNet and UniK3DNet (UniDepth's learned

@@ -463,6 +463,8 @@ class SVDVAEConfig:
     block_out_channels: Sequence[int] = (128, 256, 512, 512)
     layers_per_block: int = 2
     latent_channels: int = 4
+    # decoder output channels: 3 for RGB; 4 for GeometryCrafter's point-map
+    # VAE (xyz and a valid-mask logit)
     out_channels: int = 3
     scaling_factor: float = 0.18215
     dtype: str = "bfloat16"
@@ -474,6 +476,33 @@ class SVDVAEConfig:
 
 SVD_VAE_TINY = SVDVAEConfig(block_out_channels=(32, 64),
                             layers_per_block=1, dtype="float32")
+
+# GeometryCrafter's point-map VAE: the same KL encoder and temporal decoder,
+# trained on point maps, decoding xyz and a valid-mask logit. The tiny preset
+# keeps the 8x spatial factor, so its latents align with every denoiser VAE.
+PMAP_VAE = SVDVAEConfig(out_channels=4)
+PMAP_VAE_TINY = SVDVAEConfig(block_out_channels=(32, 32, 32, 64),
+                             layers_per_block=1, dtype="float32",
+                             out_channels=4)
+
+
+def vae_config_from_params(params, dtype="bfloat16"):
+    """The :class:`SVDVAEConfig` of a converted VAE tree (``{"encoder":
+    {"params": ...}, "decoder": {"params": ...}}``, numpy or tensor leaves):
+    levels, widths, layers per block, latent and output channels all come
+    from the tensors' shapes."""
+    enc = params["encoder"]["params"]
+    dec = params["decoder"]["params"]
+    n = 1 + max(int(k[4:].split("_")[0]) for k in enc
+                if k.startswith("down"))
+    layers = sum(1 for k in enc if k.startswith("down0_res"))
+    chans = tuple(int(enc[f"down{i}_res0"]["conv1"]["kernel"].shape[-1])
+                  for i in range(n))
+    latent = int(enc["quant_conv"]["kernel"].shape[-1]) // 2
+    out_ch = int(dec["conv_out"]["kernel"].shape[-1])
+    return SVDVAEConfig(block_out_channels=chans, layers_per_block=layers,
+                        latent_channels=latent, out_channels=out_ch,
+                        dtype=dtype)
 
 
 class VAEAttention(nn.Module):

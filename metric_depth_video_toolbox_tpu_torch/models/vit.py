@@ -55,6 +55,10 @@ class ViTConfig:
     # runs over the concatenated tokens of all views of a group (same
     # weights). The caller opts in per forward with ``view_group``.
     cross_view_indices: Sequence[int] = ()
+    # None: matmuls in ``dtype``; "int8": the blocks' Dense layers (qkv,
+    # proj, fc1, fc2) run dynamically quantized int8 matmuls
+    # (:class:`QDense`). The parameters are the same either way.
+    quant: str | None = None
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
@@ -123,6 +127,22 @@ class Conv(nn.Conv2d):
         return y.permute(0, 2, 3, 1)
 
 
+class QDense(Dense):
+    """:class:`Dense` with the same parameters, whose product is the
+    dynamically quantized int8 one of :func:`..ops.quant.int8_dense`."""
+
+    def forward(self, x):
+        from metric_depth_video_toolbox_tpu_torch.ops import quant
+        return quant.int8_dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+def dense(cfg: ViTConfig, in_features, out_features):
+    """A block's Dense layer: :class:`QDense` when ``cfg.quant`` is
+    "int8", else :class:`Dense`."""
+    cls = QDense if cfg.quant == "int8" else Dense
+    return cls(in_features, out_features, cfg.compute_dtype)
+
+
 def layer_norm(mod, x):
     """LayerNorm in float32 (flax ``nn.LayerNorm(dtype=float32)``)."""
     return F.layer_norm(x.to(torch.float32), mod.normalized_shape,
@@ -134,8 +154,8 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
-        self.qkv = Dense(d, 3 * d, cfg.compute_dtype)
-        self.proj = Dense(d, d, cfg.compute_dtype)
+        self.qkv = dense(cfg, d, 3 * d)
+        self.proj = dense(cfg, d, d)
 
     def forward(self, x, valid=None):
         """``valid``: optional (N,) bool marking the real tokens of a
@@ -163,8 +183,8 @@ class Mlp(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
-        self.fc1 = Dense(cfg.embed_dim, hidden, cfg.compute_dtype)
-        self.fc2 = Dense(hidden, cfg.embed_dim, cfg.compute_dtype)
+        self.fc1 = dense(cfg, cfg.embed_dim, hidden)
+        self.fc2 = dense(cfg, hidden, cfg.embed_dim)
         # erf GELU in float32; the tanh form in bfloat16, where its error
         # sits below bfloat16 rounding (the JAX package's choice)
         self.approximate = "tanh" if cfg.dtype == "bfloat16" else "none"

@@ -125,3 +125,28 @@ def umeyama_sim3(source_points, target_points, weights=None):
     scale = torch.sum(d * flip, dim=-1) / torch.clamp(var_s, min=1e-12)
     trans = ct - scale[..., None] * torch.einsum("...ij,...j->...i", rot, cs)
     return scale, rot, trans
+
+
+def median(x):
+    """The median of all of ``x``, the mean of the two middle values for an
+    even count (``jnp.median`` / ``np.median``, not ``torch.median``, which
+    returns the lower one): their sum times 0.5, as ``jnp.median`` rounds.
+    A 0-dim tensor."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def median_ratio_scale(reference, prediction, weights=None, eps=1e-9):
+    """The robust per-frame rescale ``median(reference / prediction)``; with
+    ``weights``, the weighted median: the sorted ratios' first whose
+    cumulative weight reaches half the total (``searchsorted``, left).
+    A 0-dim tensor."""
+    ratio = reference / torch.clamp(prediction, min=eps)
+    if weights is None:
+        return median(ratio)
+    r = ratio.reshape(-1)
+    rs, order = torch.sort(r, stable=True)
+    cdf = torch.cumsum(weights.reshape(-1)[order].to(r.dtype), 0)
+    idx = torch.searchsorted(cdf, (cdf[-1] / 2.0).reshape(1))
+    return rs[torch.clamp(idx, 0, r.numel() - 1)][0]

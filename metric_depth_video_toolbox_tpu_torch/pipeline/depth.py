@@ -14,6 +14,14 @@ write the depth video, with an ``_xfovs.json`` sidecar where asked.
 The DA3 engine (:class:`DA3PipelineEngine`, ``models.da3.DA3Engine``) runs
 multi-view windows and writes the depth video with its ``_xfovs.json`` and
 ``_transformations.json`` sidecars.
+
+The diffusion engines run the SVD-class denoiser in windows:
+:class:`DepthCrafterEngine` (relative disparity made metric against a
+reference depth video) and :class:`GeometryCrafterEngine` (a prior's point
+maps refined, with GeometryCrafter's point-map VAE when given).
+:class:`MVSEngine` runs plane-sweep multi-view stereo over a camera track.
+``quantize="int8"`` runs the ViT blocks' matmuls of the VDA, single-frame
+and DA3 engines in int8 (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from metric_depth_video_toolbox_tpu_torch.models import depth_anything as da
+from metric_depth_video_toolbox_tpu_torch.models import diffusion as dif
 from metric_depth_video_toolbox_tpu_torch.models import dpt as dpt_mod
 from metric_depth_video_toolbox_tpu_torch.models import from_jax
 from metric_depth_video_toolbox_tpu_torch.models import video_depth as vd
@@ -117,9 +126,6 @@ class VDAEngine:
                  metric_anchor_frames=32, max_depth=100.0, fp32=False,
                  data_parallel=False, quantize=None, rolling_average=0,
                  anchor_stride=4, device=None):
-        if quantize:
-            raise NotImplementedError("not ported yet: --quantize "
-                                      "(ROADMAP A13)")
         if data_parallel:
             raise NotImplementedError("not ported yet: data-parallel "
                                       "inference over several GPUs "
@@ -132,6 +138,8 @@ class VDAEngine:
         if fp32:
             vit_cfg = dataclasses.replace(vit_cfg, dtype="float32")
             dpt_cfg = dataclasses.replace(dpt_cfg, dtype="float32")
+        if quantize:
+            vit_cfg = dataclasses.replace(vit_cfg, quant=quantize)
         self.cfg = vd.VideoDepthConfig(
             vit=vit_cfg, dpt=dpt_cfg, temporal_layers=1,
             temporal_heads=2 if size == "vitt" else 8,
@@ -296,9 +304,6 @@ class SingleFrameEngine:
         from metric_depth_video_toolbox_tpu_torch.models import moge
         from metric_depth_video_toolbox_tpu_torch.models import unidepth
 
-        if quantize:
-            raise NotImplementedError("not ported yet: --quantize "
-                                      "(ROADMAP A13c)")
         if data_parallel:
             raise NotImplementedError("not ported yet: data-parallel "
                                       "inference over several GPUs "
@@ -338,6 +343,16 @@ class SingleFrameEngine:
                     point_cfg, k_condition=self.cfg.k_condition)
             if variant == "depthpro" and not xfov:
                 self.cfg = dataclasses.replace(self.cfg, fov_head=True)
+        if quantize:
+            # the ViT blocks' matmuls of the graph that runs, in int8
+            if self.graph is not None:
+                kind, gcfg = self.graph
+                self.graph = (kind, dataclasses.replace(
+                    gcfg, vit=dataclasses.replace(gcfg.vit, quant=quantize)))
+            else:
+                self.cfg = dataclasses.replace(
+                    self.cfg, vit=dataclasses.replace(self.cfg.vit,
+                                                      quant=quantize))
         self.input_size = input_size
         self.max_depth = max_depth
         self.device = resolve_device(device)
@@ -543,13 +558,14 @@ class DA3PipelineEngine:
                  quantize=None, **kw):
         from metric_depth_video_toolbox_tpu_torch.models import da3 as da3_mod
 
-        if quantize:
-            raise NotImplementedError("not ported yet: --quantize "
-                                      "(ROADMAP A13)")
         if size == "tiny":
             size = "vitt"
         if size is not None:
             kw.setdefault("cfg", da3_mod.preset(size))
+        if quantize:
+            cfg = kw.get("cfg") or da3_mod.preset("vitl")
+            kw["cfg"] = dataclasses.replace(
+                cfg, vit=dataclasses.replace(cfg.vit, quant=quantize))
         if input_size is not None:
             kw.setdefault("resolution", input_size)
         self.engine = da3_mod.DA3Engine(**kw)
@@ -573,13 +589,453 @@ def run_da3(color_video, max_depth=100.0, max_frames=-1, engine=None, **kw):
     return out
 
 
+def _build_denoiser(cfg, vae_cfg=None, mono=False):
+    """The diffusion depth engines' denoiser: an ``SVDConfig`` (it has a
+    cross_attention_dim) selects the weight-exact SVD graph
+    (``models.svd.SVDInpainter``; DepthCrafter and GeometryCrafter are SVD
+    fine-tunes), a ``DiffusionConfig`` the generic ``VideoInpainter``.
+    ``mono``: the conditioning carries a second latent (GeometryCrafter's
+    point map), so the UNet takes 4 more channels."""
+    if hasattr(cfg, "cross_attention_dim"):
+        from metric_depth_video_toolbox_tpu_torch.models import svd as svdm
+        return svdm.SVDInpainter(cfg, vae_cfg or svdm.SVDVAEConfig(),
+                                 mono=mono)
+    return dif.VideoInpainter(cfg, mono=mono)
+
+
+def _windows(t, window, overlap):
+    """Start frames of the sliding windows over ``t`` frames, and each
+    window's frame indices: past the clip's end the last frame repeats, so
+    a short clip runs one full window."""
+    out = []
+    start, step = 0, max(window - overlap, 1)
+    while start < t:
+        out.append((start, np.clip(np.arange(start, start + window), 0,
+                                   t - 1)))
+        if start + window >= t:
+            break
+        start += step
+    return out
+
+
+class _DiffusionDepthEngine:
+    """What the DepthCrafter and GeometryCrafter engines share: the
+    denoiser (``_build_denoiser``), its weights (``params``: a port state
+    dict or a Flax tree; None draws seeded ones from ``rng_seed``), the
+    sampler's noise from a ``torch.Generator`` on the engine's device, and
+    the window loop."""
+
+    mono = False
+
+    def __init__(self, cfg, params, vae_cfg, window, overlap, rng_seed,
+                 max_depth, device):
+        self.cfg = cfg or dif.DIFFUSION_TINY
+        self.vae_cfg = vae_cfg
+        self.window = window
+        self.overlap = overlap
+        self.max_depth = max_depth
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rng_seed)
+        self._params = params
+        self._model = None
+
+    @property
+    def model(self):
+        """The denoiser, built on the engine's device at first use."""
+        if self._model is None:
+            with torch.device(self.device):
+                model = _build_denoiser(self.cfg, self.vae_cfg, self.mono)
+            if self._params is None:
+                dif.init_weights(model, self.generator)
+            else:
+                from_jax.load_params(model, self._params)
+            self._params = None
+            self._model = dif.store_in_compute_dtype(model).eval()
+        return self._model
+
+    def _sample(self, latent, cond, noise=None, init=None):
+        """Denoised latents of ``latent``'s shape. ``noise``: the sampler's
+        standard normal draw, from the engine's generator when None."""
+        if noise is None:
+            noise = torch.randn(latent.shape, generator=self.generator,
+                                device=self.device)
+        model = self.model
+        return dif.sample(lambda zz, s, c: model.denoise(zz, s, c),
+                          torch.as_tensor(noise, device=self.device),
+                          self.cfg, cond, init=init)
+
+    def _run_windows(self, frames_u8, per_window, noise=None):
+        """``per_window(idx, noise)`` -> (window, H, W) on the device, over
+        every window; the windows' new frames stitched -> (T, H, W).
+        ``noise``: None, or one noise array per window."""
+        t = frames_u8.shape[0]
+        outs = []
+        for n_w, (start, idx) in enumerate(_windows(t, self.window,
+                                                    self.overlap)):
+            d = per_window(idx, None if noise is None else noise[n_w])
+            outs.append(d[:min(self.window, t - start)])
+        if len(outs) > 1:
+            return vd.stitch_windows(outs, self.overlap, t)
+        return outs[0][:t]
+
+
+class DepthCrafterEngine(_DiffusionDepthEngine):
+    """DepthCrafter-class video depth by diffusion: relative disparity in
+    windows (110 / 25, the denoiser's own steps), stitched, then made
+    metric against a reference depth video by a scale/shift fit of its
+    inverse.
+
+    ``cfg``: None (``DIFFUSION_TINY``, the JAX package's default too) or
+    an ``SVDConfig`` (the production SVD graph, with ``vae_cfg``, default
+    ``SVDVAEConfig()``). ``work_hw`` None: from the clip's aspect ratio,
+    the long side at most ``max_res``, each side rounded to a multiple of
+    64 (1080p -> 448 x 768). ``use_depth_prompting``: the reference depth's
+    normalized inverse rides into the sampler as an SDEdit-style init
+    latent through the VAE. Other keywords (the movie's generic engine
+    keywords) are ignored, as in the JAX package."""
+
+    def __init__(self, cfg=None, params=None, window=110, overlap=25,
+                 work_hw=None, max_res=768, rng_seed=0, max_depth=100.0,
+                 vae_cfg=None, use_depth_prompting=False, device=None, **_):
+        super().__init__(cfg, params, vae_cfg, window, overlap, rng_seed,
+                         max_depth, device)
+        self.work_hw = None if work_hw is None else tuple(work_hw)
+        self.max_res = max_res
+        self.use_depth_prompting = use_depth_prompting
+
+    def _resolve_work_hw(self, h, w):
+        if self.work_hw is None:
+            s = min(1.0, self.max_res / max(h, w))
+            self.work_hw = (max(64, int(round(h * s / 64)) * 64),
+                            max(64, int(round(w * s / 64)) * 64))
+        return self.work_hw
+
+    @torch.no_grad()
+    def infer_window(self, frames_u8, ref_depth=None, noise=None):
+        """One window: uint8 (T, H, W, 3) -> relative disparity (T, H, W) on
+        the device. ``ref_depth`` (T, H, W) prompts the sampler with
+        ``use_depth_prompting``."""
+        from metric_depth_video_toolbox_tpu_torch.ops import image as im
+
+        t, h, w = frames_u8.shape[:3]
+        wh, ww = self._resolve_work_hw(h, w)
+        model, dev = self.model, self.device
+        f = torch.as_tensor(np.ascontiguousarray(frames_u8), device=dev)
+        fw = im.resize(f.to(torch.float32) / 255.0, (wh, ww))
+        cond_lat = model.encode(fw)
+        cond = torch.cat([cond_lat, torch.zeros(
+            tuple(cond_lat.shape[:3]) + (1,), device=dev,
+            dtype=cond_lat.dtype)], dim=-1)
+        init = None
+        if self.use_depth_prompting and ref_depth is not None:
+            dref = torch.as_tensor(np.ascontiguousarray(ref_depth),
+                                   device=dev).to(torch.float32)
+            inv = 1.0 / torch.clamp(dref, min=1e-3)
+            inv = inv / torch.clamp(torch.amax(inv), min=1e-6)
+            dimg = im.resize(inv[..., None].expand(-1, -1, -1, 3), (wh, ww))
+            init = model.encode(dimg)
+        z = self._sample(cond_lat, cond, noise, init)
+        disp = model.decode(z).to(torch.float32).mean(dim=-1)
+        return resize_nchw(disp[:, None], (h, w))[:, 0]
+
+    @torch.no_grad()
+    def infer_video(self, frames_u8, reference_depth, noise=None):
+        """uint8 (T, H, W, 3) and the reference metric depth (T, H, W) ->
+        metric depth (T, H, W) float32 numpy. ``noise``: None, or the
+        sampler's draw for each window."""
+        t = frames_u8.shape[0]
+        ref = np.asarray(reference_depth)
+        disp = self._run_windows(frames_u8, lambda idx, nz: self.infer_window(
+            frames_u8[idx], ref[idx] if self.use_depth_prompting else None,
+            nz), noise)
+        target = 1.0 / torch.clamp(torch.as_tensor(
+            np.ascontiguousarray(ref[:t]), device=self.device).to(
+                torch.float32), min=1e-3)
+        s, sh = solvers.scale_and_shift(disp, target)
+        inv = disp * s + sh
+        depth = 1.0 / torch.clamp(inv, min=1e-6)
+        depth = torch.where(inv <= 0, torch.full_like(depth, self.max_depth),
+                            depth)
+        return torch.clamp(depth, 0.0, self.max_depth).cpu().numpy()
+
+
+class GeometryCrafterEngine(_DiffusionDepthEngine):
+    """GeometryCrafter-class depth stabilizer: the prior depth (a depth
+    video, or MoGe's) is unprojected to point maps at the working size
+    (384 x 640) and normalized by the window's median z; the denoiser is
+    conditioned on the RGB latent, a zero mask and the point-map latent;
+    its refined point map's Z channel, de-normalized, is the depth, which
+    is stitched over windows (110 / 5) and rescaled to the prior by the
+    median ratio.
+
+    ``pmap_vae_params``: a converted point-map VAE (``convert_svd_vae`` at
+    ``PMAP_VAE``, config inferred from the tree unless ``pmap_vae_cfg``)
+    encodes the point maps and decodes xyz and a valid-mask logit;
+    without it the shared denoiser VAE stands in. ``xfov`` (default 60)
+    unprojects the prior."""
+
+    mono = True
+
+    def __init__(self, cfg=None, params=None, window=110, overlap=5,
+                 work_hw=(384, 640), rng_seed=0, max_depth=100.0, xfov=60.0,
+                 vae_cfg=None, pmap_vae_params=None, pmap_vae_cfg=None,
+                 device=None, **_):
+        super().__init__(cfg, params, vae_cfg, window, overlap, rng_seed,
+                         max_depth, device)
+        self.work_hw = tuple(work_hw)
+        self.xfov = xfov or 60.0
+        self.pmap_enc = self.pmap_dec = None
+        if pmap_vae_params is not None:
+            from metric_depth_video_toolbox_tpu_torch.models import svd as svdm
+            pcfg = pmap_vae_cfg or svdm.vae_config_from_params(
+                pmap_vae_params)
+            with torch.device(self.device):
+                enc, dec = svdm.SVDVAEEncoder(pcfg), svdm.SVDVAEDecoder(pcfg)
+            for mod, part in ((enc, "encoder"), (dec, "decoder")):
+                from_jax.load_params(mod, pmap_vae_params[part])
+            self.pmap_enc = dif.store_in_compute_dtype(enc).eval()
+            self.pmap_dec = dif.store_in_compute_dtype(dec).eval()
+
+    @torch.no_grad()
+    def infer_window(self, frames_u8, prior_depth, noise=None):
+        """One window: uint8 (T, H, W, 3) and the prior depth (T, H, W) ->
+        depth (T, H, W) on the device, before the median-ratio rescale."""
+        from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
+        from metric_depth_video_toolbox_tpu_torch.ops import image as im
+
+        t, h, w = frames_u8.shape[:3]
+        wh, ww = self.work_hw
+        model, dev = self.model, self.device
+        f = torch.as_tensor(np.ascontiguousarray(frames_u8), device=dev)
+        fw = im.resize(f.to(torch.float32) / 255.0, (wh, ww))
+        prior = torch.as_tensor(np.ascontiguousarray(prior_depth),
+                                device=dev).to(torch.float32)
+        pw = resize_nchw(prior[:, None], (wh, ww))[:, 0]
+        k = geo.camera_matrix_from_fov(ww, wh, xfov_deg=self.xfov, device=dev)
+        scale = torch.clamp(solvers.median(pw), min=1e-3)
+        pmap = geo.unproject_depth(pw, k) / scale
+        rgb_lat = model.encode(fw)
+        pmap_lat = (self.pmap_enc(pmap) if self.pmap_enc is not None
+                    else model.encode(pmap))
+        cond = torch.cat([rgb_lat, torch.zeros(
+            tuple(rgb_lat.shape[:3]) + (1,), device=dev,
+            dtype=rgb_lat.dtype), pmap_lat.to(rgb_lat.dtype)], dim=-1)
+        z = self._sample(rgb_lat, cond, noise)
+        out = (self.pmap_dec(z) if self.pmap_dec is not None
+               else model.decode(z))
+        zd = out[..., 2].to(torch.float32) * scale
+        return resize_nchw(zd[:, None], (h, w))[:, 0]
+
+    @torch.no_grad()
+    def infer_video(self, frames_u8, reference_depth, noise=None):
+        """uint8 (T, H, W, 3) and the prior depth (T, H, W) -> stabilized
+        depth (T, H, W) float32 numpy. ``noise``: None, or the sampler's
+        draw for each window."""
+        t = frames_u8.shape[0]
+        ref = np.asarray(reference_depth)
+        depth = self._run_windows(frames_u8, lambda idx, nz: self.infer_window(
+            frames_u8[idx], ref[idx], nz), noise)
+        prior = torch.as_tensor(np.ascontiguousarray(ref[:t]),
+                                device=self.device).to(torch.float32)
+        ok = (depth > 1e-3) & (prior > 1e-3)
+        if bool(ok.any()):
+            depth = depth * solvers.median(prior[ok] / depth[ok])
+        return torch.clamp(depth, 0.0, self.max_depth).cpu().numpy()
+
+
+@register_engine("geometrycrafter")
+def run_geometrycrafter(color_video, max_depth=100.0, max_frames=-1,
+                        engine=None, reference_depth_video=None, xfov=None,
+                        **kw):
+    """Stabilize a prior: the reference depth video, or, without one, a
+    MoGe single-frame pass (``size`` and ``input_size`` from ``kw``) ->
+    ``<video>_depth.mkv``; returns its path."""
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+
+    frames, fps = vio.read_video_frames(color_video, max_frames=max_frames)
+    eng = engine or GeometryCrafterEngine(max_depth=max_depth, xfov=xfov,
+                                          **kw)
+    if reference_depth_video and vio.is_valid_video(reference_depth_video):
+        with vio.DepthVideoReader(reference_depth_video, max_depth) as r:
+            prior = r.read_depth_batch(frames.shape[0])
+    else:
+        moge = SingleFrameEngine(max_depth=max_depth, variant="moge",
+                                 xfov=xfov, device=eng.device,
+                                 **{k: v for k, v in kw.items()
+                                    if k in ("size", "input_size")})
+        prior = moge.infer_video(frames)
+        del moge
+    depth = eng.infer_video(frames, prior)
+    out = color_video + "_depth.mkv"
+    vio.save_depth_video(depth, out, fps, max_depth)
+    return out
+
+
+@register_engine("depthcrafter")
+def run_depthcrafter(color_video, max_depth=100.0, max_frames=-1,
+                     engine=None, reference_depth_video=None, **kw):
+    """Color video and a reference depth video -> ``<video>_depth.mkv``;
+    returns its path."""
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+
+    if reference_depth_video is None:
+        raise ValueError("depthcrafter engine requires a reference depth "
+                         "video for metric alignment")
+    eng = engine or DepthCrafterEngine(max_depth=max_depth, **kw)
+    frames, fps = vio.read_video_frames(color_video, max_frames=max_frames)
+    with vio.DepthVideoReader(reference_depth_video, max_depth) as r:
+        ref = r.read_depth_batch(frames.shape[0])
+    depth = eng.infer_video(frames, ref)
+    out = color_video + "_depth.mkv"
+    vio.save_depth_video(depth, out, fps, max_depth)
+    return out
+
+
+class MVSEngine:
+    """MVSAnywhere-class pose-conditioned plane-sweep MVS
+    (``models.mvs.MVSNet``): each frame against a window of +-``window``//2
+    source views from the camera track, at ``resize_w`` wide (aspect kept,
+    sides multiples of 4), in batches of ``batch`` frames (the last frame
+    repeated); the refined depth, resized back by nearest neighbour.
+
+    ``size``: "base" (``MVSConfig``) or "tiny" / "vitt" (``MVS_TINY``).
+    ``rescale_to_cost_volume``: each frame times the median ratio of its
+    cost-volume depth to its refined depth over the confident pixels.
+    ``fast_cost_volume``: half the hypotheses (at least 8). ``params``: a
+    Flax tree or a port state dict; None draws seeded weights.
+    ``data_parallel`` is accepted for the JAX package's signature; one card
+    runs every batch (several cards: ROADMAP A16)."""
+
+    def __init__(self, size="base", max_depth=100.0, window=7,
+                 resize_w=1024, params=None, batch=4, rng_seed=0,
+                 rescale_to_cost_volume=False, data_parallel=True,
+                 fast_cost_volume=False, device=None, **_):
+        from metric_depth_video_toolbox_tpu_torch.models import mvs as mvs_mod
+
+        del data_parallel
+        self.cfg = mvs_mod.preset(size, max_depth=max_depth)
+        if fast_cost_volume:
+            self.cfg = dataclasses.replace(
+                self.cfg, num_depths=max(8, self.cfg.num_depths // 2))
+        self.max_depth = max_depth
+        self.half_w = max(1, int(window) // 2)
+        self.resize_w = resize_w
+        self.batch = batch
+        self.rescale = rescale_to_cost_volume
+        self.device = resolve_device(device)
+        self._params = params
+        self._seed = rng_seed
+        self._model = None
+
+    @property
+    def model(self):
+        from metric_depth_video_toolbox_tpu_torch.models import mvs as mvs_mod
+
+        if self._model is None:
+            model = mvs_mod.MVSNet(self.cfg)
+            if self._params is None:
+                dif.init_weights(model, torch.Generator().manual_seed(
+                    self._seed))
+            else:
+                from_jax.load_params(model, self._params)
+            self._model = model.to(self.device).eval()
+        return self._model
+
+    def _window_indices(self, i, n):
+        """Source indices around frame i, padded to 2 * half_w with i
+        itself marked invalid -> (indices, validity)."""
+        idx = [j for j in range(i - self.half_w, i + self.half_w + 1)
+               if 0 <= j < n and j != i]
+        if not idx:
+            idx = [min(n - 1, max(0, i + 1))]
+        valid = [1.0] * len(idx)
+        v = 2 * self.half_w
+        while len(idx) < v:
+            idx.append(i)
+            valid.append(0.0)
+        return idx[:v], valid[:v]
+
+    @torch.no_grad()
+    def infer_video(self, frames_u8, transforms, xfov, yfov=None):
+        """uint8 (N, H, W, 3), camera-to-world (N, 4, 4) and the FOV ->
+        metric depth (N, H, W) float32 numpy."""
+        from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
+        from metric_depth_video_toolbox_tpu_torch.ops import image as im
+
+        n, h, w = frames_u8.shape[:3]
+        dev = self.device
+        scale = min(1.0, self.resize_w / w)
+        wh = int(round(h * scale)) // 4 * 4
+        ww = int(round(w * scale)) // 4 * 4
+        k_work = geo.camera_matrix_from_fov(ww, wh, xfov, yfov).numpy()
+        k_feat = torch.tensor(np.diag([0.25, 0.25, 1.0]) @ k_work,
+                              dtype=torch.float32, device=dev)
+        frames = torch.as_tensor(np.asarray(frames_u8))
+        small = torch.cat([im.resize(frames[i:i + 16].to(dev).to(
+            torch.float32), (wh, ww)) for i in range(0, n, 16)])
+        c2w = np.asarray(transforms, np.float32)
+        w2c = np.stack([np.linalg.inv(t) for t in c2w])
+        model = self.model
+        outs = []
+        b = self.batch
+        for start in range(0, n, b):
+            ids = list(range(start, min(start + b, n)))
+            ids += [ids[-1]] * (b - len(ids))
+            srcs, poses, valids = [], [], []
+            for i in ids:
+                idx, val = self._window_indices(i, n)
+                srcs.append(idx)
+                poses.append(np.stack([w2c[j] @ c2w[i] for j in idx]))
+                valids.append(val)
+            out = model(small[ids] / 255.0,
+                        small[torch.tensor(srcs, device=dev)] / 255.0, k_feat,
+                        torch.from_numpy(np.stack(poses)).to(dev),
+                        torch.tensor(valids, device=dev))
+            d = out["depth"]
+            if self.rescale:
+                s = torch.stack([solvers.median_ratio_scale(
+                    out["depth_cv"][i], d[i], out["mask"][i].to(
+                        torch.float32)) for i in range(b)])
+                d = d * s[:, None, None]
+            d = dif.resize_nearest(d[:, None], (h, w))[:, 0]
+            outs.append(torch.clamp(d, 0.0, self.max_depth)[
+                :min(b, n - start)].cpu())
+        return torch.cat(outs).numpy()[:n]
+
+
+@register_engine("mvsa")
+def run_mvsa(color_video, max_depth=100.0, max_frames=-1, engine=None,
+             transformation_file=None, xfov=None, yfov=None, **kw):
+    """Color video, its camera track and FOV -> ``<video>_depth.mkv``;
+    returns its path."""
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+
+    if transformation_file is None:
+        raise ValueError("mvsa engine requires --transformation_file")
+    if xfov is None and yfov is None:
+        raise ValueError("mvsa engine requires --xfov or --yfov")
+    eng = engine or MVSEngine(max_depth=max_depth, **kw)
+    frames, fps = vio.read_video_frames(color_video, max_frames=max_frames)
+    transforms = sidecar.load_transformations(transformation_file)
+    if len(transforms) < frames.shape[0]:
+        raise ValueError(
+            f"transformation file has {len(transforms)} entries for "
+            f"{frames.shape[0]} frames")
+    depth = eng.infer_video(frames, transforms[:frames.shape[0]], xfov, yfov)
+    out = color_video + "_depth.mkv"
+    vio.save_depth_video(depth, out, fps, max_depth)
+    return out
+
+
 _RUN_KEYS = ("max_depth", "max_frames", "reference_depth_video", "xfov",
              "yfov", "save_xfovs", "transformation_file", "target_fps")
 _ENGINE_CLASSES = {"vda": VDAEngine, "single_frame": SingleFrameEngine,
-                   "da3": DA3PipelineEngine}
-# the JAX package's engines not ported yet, with their ROADMAP item
-LATER_ENGINES = {"depthcrafter": "A13b", "geometrycrafter": "A13b",
-                  "mvsa": "A13c"}
+                   "da3": DA3PipelineEngine,
+                   "depthcrafter": DepthCrafterEngine,
+                   "geometrycrafter": GeometryCrafterEngine,
+                   "mvsa": MVSEngine}
 
 
 def run_batch(engine_name, videos_or_txt, **kw):
@@ -587,10 +1043,6 @@ def run_batch(engine_name, videos_or_txt, **kw):
     videos whose output exists already are skipped."""
     from metric_depth_video_toolbox_tpu_torch.io import video as vio
 
-    if engine_name not in ENGINES:
-        item = LATER_ENGINES.get(engine_name, "A13")
-        raise NotImplementedError(f"not ported yet: depth engine "
-                                  f"{engine_name!r} (ROADMAP {item})")
     fn = ENGINES[engine_name]
     run_kw = {k: v for k, v in kw.items() if k in _RUN_KEYS}
     eng_kw = {k: v for k, v in kw.items() if k not in _RUN_KEYS}
@@ -602,6 +1054,8 @@ def run_batch(engine_name, videos_or_txt, **kw):
         for k in ("xfov", "yfov"):
             if kw.get(k) is not None:
                 eng_kw[k] = kw[k]
+    if engine_name == "geometrycrafter" and kw.get("xfov") is not None:
+        eng_kw["xfov"] = kw["xfov"]    # the point maps' unprojection
     outs = []
     eng = None
     for v in expand_batch(videos_or_txt):

@@ -42,16 +42,6 @@ from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
 
 
-def _store_in_compute_dtype(module):
-    """Store the weights of every layer that computes in bfloat16 in
-    bfloat16 (each casts its weights before the product anyway), so the
-    forward makes no casting copies and the weights take half the memory."""
-    for m in module.modules():
-        if getattr(m, "compute_dtype", None) == torch.bfloat16:
-            m.to(torch.bfloat16)
-    return module
-
-
 class DiffusionInfillEngine:
     """SVD-class infill of one eye's chunk at a fixed working size.
 
@@ -115,7 +105,7 @@ class DiffusionInfillEngine:
         else:
             from_jax.load_params(model, self._params)
         self._params = self._clip_params = None
-        self.model = _store_in_compute_dtype(model).eval()
+        self.model = dif.store_in_compute_dtype(model).eval()
 
     def num_parameters(self):
         """Parameters of the inpainter (and of the CLIP tower, if any)."""

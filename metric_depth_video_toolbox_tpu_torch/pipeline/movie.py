@@ -15,13 +15,15 @@ Seven steps with the JAX package's file contract and resume by existence
   7. concatenate into ``<movie>_SBS.mkv`` and tag StereoMode
 
 Per-scene ``Engine``, ``Infill`` and ``Convergence`` overrides come from
-extra columns of the scene CSV. Depth engines: ``vda``, ``da3`` and the
+extra columns of the scene CSV. Depth engines: ``vda``, ``da3``, the
 single-frame engines (``unidepth``, ``unik3d``, ``moge``, ``depthpro``,
 ``single_frame``; two passes per scene, the second locked to the first's
-median FOV); depthcrafter, geometrycrafter and mvsa raise naming their
-ROADMAP item, and an unknown name falls back with the JAX package's
-warning. ``parallel`` > 1 (scene
-renders on worker threads) raises naming A16.
+median FOV), ``depthcrafter`` (made metric against a single-frame pass
+written to ``<scene>_ref_depth.mkv`` first) and ``geometrycrafter`` (on a
+MoGe prior); ``mvsa`` needs a camera track, so the single-frame engine runs
+in its place, with the JAX package's message, and an unknown name falls
+back with its warning. ``parallel`` > 1 (scene renders on worker threads)
+raises naming A16.
 
 Every device step runs on ``device`` (CUDA unless the caller asks for the
 CPU). ``STEP_SECONDS`` holds the wall time of each step of the last run.
@@ -108,30 +110,24 @@ def step1_create_scene_videos(color_video, scenes):
 def _depth_engine(scene, engine):
     """(engine, variant) of a scene (its CSV override, else ``engine``), as
     the JAX package resolves the name: the single-frame names map onto
-    ``single_frame`` with their variant."""
+    ``single_frame`` with their variant, and ``mvsa``, which needs a camera
+    track the movie has not, onto ``single_frame``."""
     eng = scene.get("Engine", "") or engine
+    if eng == "mvsa":
+        print(f"scene {scene['Scene Number']}: mvsa needs "
+              "--transformation_file; using single_frame instead")
+        return "single_frame", "da"
     if eng == "videoanythingmetric":
         return "vda", "da"
     if eng in _SINGLE_FRAME_NAMES:
         return "single_frame", eng if eng != "single_frame" else "da"
     if eng in depth_stage.ENGINES:
         return eng, "da"
-    if eng in REFERENCE_ENGINES:
-        _not_ported(eng)
     known = sorted(set(REFERENCE_ENGINES) | set(_SINGLE_FRAME_NAMES))
     print(f"WARNING: scene {scene['Scene Number']}: unknown Engine "
           f"override '{eng}' (known: {', '.join(known)}); falling back to "
           f"'{engine}'")
-    fallback = engine if engine in REFERENCE_ENGINES else "vda"
-    if fallback not in depth_stage.ENGINES:
-        _not_ported(fallback)
-    return fallback, "da"
-
-
-def _not_ported(eng):
-    item = depth_stage.LATER_ENGINES.get(eng, "A13")
-    raise NotImplementedError(f"not ported yet: depth engine {eng!r} in "
-                              f"the movie (ROADMAP {item})")
+    return (engine if engine in depth_stage.ENGINES else "vda"), "da"
 
 
 def _two_pass_single_frame(videos, variant, max_depth, engine_kwargs):
@@ -170,7 +166,8 @@ def step2_estimate_depth(scenes, engine="vda", max_depth=100.0,
                          engine_kwargs=None, device=None):
     """Depth for every scene without a depth video; one engine instance
     per engine type for the whole movie, two per scene for the
-    single-frame engines (:func:`_two_pass_single_frame`)."""
+    single-frame engines (:func:`_two_pass_single_frame`); depthcrafter
+    first writes a single-frame reference pass per scene."""
     by_engine = {}
     for scene in scenes:
         if scene["finished"] or vio.is_valid_video(scene["depth_video_file"]):
@@ -180,6 +177,18 @@ def step2_estimate_depth(scenes, engine="vda", max_depth=100.0,
     kw = dict(engine_kwargs or {})
     kw.setdefault("device", device)
     for (eng, variant), videos in by_engine.items():
+        if eng == "depthcrafter":
+            # made metric against a reference: a single-frame metric pass
+            # per scene first
+            for v in videos:
+                ref = v + "_ref_depth.mkv"
+                if not vio.is_valid_video(ref):
+                    tmp = depth_stage.run_batch("single_frame", v,
+                                                max_depth=max_depth, **kw)[0]
+                    os.replace(tmp, ref)
+                depth_stage.run_batch(eng, v, max_depth=max_depth,
+                                      reference_depth_video=ref, **kw)
+            continue
         if eng == "single_frame":
             _two_pass_single_frame(videos, variant, max_depth, kw)
             continue

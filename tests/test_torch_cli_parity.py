@@ -53,9 +53,17 @@ def test_engine_lists_the_reference_engines(capsys):
 
 @pytest.mark.parametrize("name", ["depthcrafter", "geometrycrafter",
                                   "mvsa"])
-def test_engine_unported_exits_naming_a13(name):
-    with pytest.raises(SystemExit, match="A13"):
-        tmain.main(["engine", name, "--color_video", "x.mkv"])
+def test_engine_unported_exits_naming_a13(name, capsys):
+    """The engines that exited naming ROADMAP A13 until the diffusion and
+    MVS engines were ported now reach their own parsers, with their own
+    flags."""
+    with pytest.raises(SystemExit) as e:
+        tmain.main(["engine", name, "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "A13" not in out and "--window" in out
+    assert ("--transformation_file" in out) == (name == "mvsa")
+    assert ("--pmap_vae_checkpoint" in out) == (name == "geometrycrafter")
 
 
 def test_video_writer_resizes_like_reference(tmp_path):
@@ -121,7 +129,7 @@ def _parsers(command, monkeypatch):
              "depth": "video_metric_convert",
              "download-weights": "download_weights", "view": "view_depthfile",
              "split-sbs": "split_sbs_video", "inpaint": "apply_inpainting",
-             "project": "project"}
+             "project": "project", "upscale": "upscale_depth"}
     return tuple(importlib.import_module(f"{pkg}.cli.{names[command]}")
                  .build_parser() for pkg in pkgs)
 
@@ -133,7 +141,9 @@ UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": (),
                   "split-sbs": (), "inpaint": (), "project": (),
                   "engine unidepth": (), "engine unik3d": (),
                   "engine moge": (), "engine depthpro": (),
-                  "engine videoanythingmetric": ()}
+                  "engine videoanythingmetric": (), "upscale": (),
+                  "engine depthcrafter": (), "engine geometrycrafter": (),
+                  "engine mvsa": ()}
 
 
 @pytest.mark.parametrize("command", sorted(UNPORTED_FLAGS))
@@ -150,8 +160,6 @@ def test_port_parser_accepts_every_reference_flag(command, monkeypatch):
 # option values the port does not run yet: (command, argv, ROADMAP item)
 UNPORTED_OPTIONS = [
     ("movie", ["--parallel", "2"], "A16"),
-    ("movie", ["--quantize", "int8"], "A13"),
-    ("movie", ["--depth_engine", "mvsa"], "A13"),
 ]
 
 
@@ -169,6 +177,27 @@ def test_unported_options_raise(tmp_path, monkeypatch, command, argv, item):
         tmain.main(base + argv)
     for opts in UNPORTED_FLAGS.values():
         assert not set(opts) & set(argv)
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--quantize", "int8"], {"engine_kwargs": {
+        "size": "vits", "input_size": 518, "quantize": "int8"}}),
+    (["--depth_engine", "mvsa"], {"engine": "mvsa"})])
+def test_movie_options_that_named_a13_reach_movie_to_3d(monkeypatch, argv,
+                                                        want):
+    """``movie --quantize int8`` and ``--depth_engine mvsa``, which raised
+    naming ROADMAP A13, reach ``movie_to_3d`` (the depth stage's int8
+    matmuls; the mvsa fallback onto the single-frame engine is held in
+    test_torch_mvs.py)."""
+    from metric_depth_video_toolbox_tpu_torch.pipeline import movie as tmovie
+
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    calls = []
+    monkeypatch.setattr(tmovie, "movie_to_3d",
+                        lambda *a, **kw: calls.append(kw))
+    tmain.main(["movie", "--color_video", "c.mkv", "--xfov", "60"] + argv)
+    for key, val in want.items():
+        assert calls[0][key] == val
 
 
 @pytest.mark.parametrize("command,argv", [

@@ -304,11 +304,10 @@ def test_convert_torch_file_without_cfg_fails_like_jax(tmp_path, kind,
 
 @pytest.mark.parametrize("kind", sorted(tconvert._LATER))
 def test_later_kinds_name_their_roadmap_item(tmp_path, kind):
-    """The JAX package's other kinds: the port raises naming A13 (depth
-    engines) or A14 (tracking, pose, flow), before reading the file."""
+    """The JAX package's other kinds: the port raises naming A14 (tracking,
+    pose, flow), before reading the file."""
     item = tconvert._LATER[kind]
-    assert item == ("A14" if kind in ("droid", "megasam", "raft",
-                                      "cotracker3") else "A13")
+    assert item == "A14"
     with pytest.raises(NotImplementedError, match=item):
         tconvert.convert_torch_file(str(tmp_path / "absent.pth"), kind)
 
@@ -325,7 +324,8 @@ def test_unknown_kind_and_registry_match_jax(tmp_path):
     kinds = {e["kind"] for e in tconvert.WEIGHT_REGISTRY.values()}
     assert kinds - set(tconvert._LATER) == {
         "video_depth", "dinov2", "da3", "wan", "svd_unet", "m2svid_sgm",
-        "u2net", "clip_vision", "moge", "unidepth", "unik3d", "depthpro_hf"}
+        "u2net", "clip_vision", "moge", "unidepth", "unik3d", "depthpro_hf",
+        "pmap_vae"}
 
 
 # --------------------------------------------------- download_weights ----

@@ -571,13 +571,23 @@ def test_da3_cli_flags_and_defaults_match(monkeypatch):
     assert spec(tcli.build_da3_parser()) == spec(seen["parser"])
 
 
-def test_da3_cli_unported_options_raise():
+def test_da3_cli_unported_options_raise(monkeypatch):
+    """``--quantize int8``, which raised naming ROADMAP A13, reaches the
+    engine: DA3_L's ViT with int8 matmuls (its numbers are held in
+    test_torch_quant.py)."""
     from metric_depth_video_toolbox_tpu_torch.cli import depth_engines as tcli
+    from metric_depth_video_toolbox_tpu_torch.pipeline import depth as tdepth
 
+    built = []
+    monkeypatch.setitem(tdepth._ENGINE_CLASSES, "da3",
+                        lambda **kw: built.append(
+                            tdepth.DA3PipelineEngine(**kw)))
+    monkeypatch.setattr(tdepth, "ENGINES", {"da3": lambda *a, **kw: "o"})
     args = tcli.build_da3_parser().parse_args(
         ["--color_video", "x.mp4", "--quantize", "int8"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        tcli.run_da3(args, device="cpu")
+    tcli.run_da3(args, device="cpu")
+    cfg = built[0].engine.cfg
+    assert cfg.vit.quant == "int8" and cfg.vit.embed_dim == 1024
 
 
 @pytest.mark.parametrize("flag", ["--checkpoint", "--backbone_checkpoint"])

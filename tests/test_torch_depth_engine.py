@@ -151,14 +151,8 @@ def test_slice_encode_and_stereo_match(metric):
 
 
 def test_unported_engine_options_raise():
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdepth.VDAEngine(quantize="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="A16"):
         tdepth.VDAEngine(data_parallel=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdepth.run_batch("depthcrafter", "x.mp4")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdepth.DA3PipelineEngine(quantize="int8", device="cpu")
 
 
 def test_depth_cli_flags_and_defaults_match():

@@ -513,10 +513,7 @@ def test_movie_step6_diffusion_matches_jax(movie_runs, tmp_path,
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"parallel": 2}, "A16"),
-    ({"engine": "geometrycrafter"}, "A13"),
-    ({"engine": "depthcrafter"}, "A13"),
-    ({"engine_kwargs": {"quantize": "int8"}}, "A13")])
+    ({"parallel": 2}, "A16")])
 def test_movie_unported_options_raise(tmp_path, kwargs, match):
     pytest.importorskip("cv2")
     frames = _clip()[:SCENE]
@@ -524,6 +521,44 @@ def test_movie_unported_options_raise(tmp_path, kwargs, match):
     tvio.save_rgb_video(frames, clip, 24)
     with pytest.raises(NotImplementedError, match=match):
         tmovie.movie_to_3d(clip, device="cpu", xfov=60.0, **kwargs)
+
+
+@pytest.mark.parametrize("engine,kw,want", [
+    ("geometrycrafter", {}, [("geometrycrafter", ["s1.mkv"], {})]),
+    ("depthcrafter", {}, [
+        ("single_frame", "s1.mkv", {}),
+        ("depthcrafter", "s1.mkv",
+         {"reference_depth_video": "s1.mkv_ref_depth.mkv"})]),
+    ("vda", {"quantize": "int8"}, [("vda", ["s1.mkv"],
+                                    {"quantize": "int8"})])])
+def test_movie_step2_runs_what_named_a13(tmp_path, monkeypatch, engine, kw,
+                                         want):
+    """The depth engines and the option that raised naming ROADMAP A13 in
+    the movie: geometrycrafter through ``run_batch``, depthcrafter after a
+    single-frame reference pass moved to ``<scene>_ref_depth.mkv``, and
+    ``quantize`` handed to the engine (the engines' numbers are held in
+    test_torch_diffusion_depth.py and test_torch_quant.py)."""
+    calls = []
+
+    def run_batch(eng, vids, **kws):
+        calls.append((eng, vids, {k: v for k, v in kws.items()
+                                  if k in ("reference_depth_video",
+                                           "quantize")}))
+        if eng == "single_frame":
+            out = str(tmp_path / "ref.mkv")
+            with open(out, "wb") as f:
+                f.write(b"\0" * 4096)
+            return [out]
+        return []
+    monkeypatch.setattr(tmovie.depth_stage, "run_batch", run_batch)
+    monkeypatch.chdir(tmp_path)
+    scenes = [{"finished": False, "Scene Number": 1,
+               "depth_video_file": "no1.mkv", "scene_video_file": "s1.mkv"}]
+    tmovie.step2_estimate_depth(scenes, engine=engine, device="cpu",
+                                engine_kwargs=kw)
+    assert calls == want
+    assert os.path.exists(tmp_path / "s1.mkv_ref_depth.mkv") == (
+        engine == "depthcrafter")
 
 
 def test_movie_unknown_engine_falls_back_with_warning(monkeypatch, capsys):

@@ -210,8 +210,6 @@ def test_infer_video_matches_jax(patched, variant, xfov):
 def test_unidepth_needs_xfov_and_unported_options_raise():
     with pytest.raises(ValueError, match="xfov"):
         tdepth.SingleFrameEngine(variant="unidepth", device="cpu")
-    with pytest.raises(NotImplementedError, match="A13c"):
-        tdepth.SingleFrameEngine(quantize="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="A16"):
         tdepth.SingleFrameEngine(data_parallel=True, device="cpu")
 
