@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--baseline-csrc DIR]
-                          [--only single_frame|depth_engines]
+                          [--only single_frame|depth_engines|tracking]
 
 Run from the repository root on a machine with a CUDA card. Phases, each
 of which fails the run on error:
@@ -116,7 +116,8 @@ of which fails the run on error:
                 (flash_packed), U²-Net SEG_TINY and the basic infill at a
                 small size in float32 on the card and on the CPU: they
                 must agree.
-  9. files      depth -> stereo -> infill (--model_scale tiny), da3
+  9. files      depth -> stereo -> infill (--model_scale tiny, one
+                12-frame chunk), da3
                 (--model_size vitt) and stereo --fused_anchor_sweep file to
                 file through cli/main.py (OpenCV needed: the phase fails
                 without it, as the movie phase does).
@@ -198,6 +199,26 @@ of which fails the run on error:
                 before and read after (no launch); then each engine at its
                 tiny preset on the card and on the CPU (float32, the same
                 weights and noise).
+ 14. tracking  tracking, pose and flow (after the earlier phases' models
+                are freed), file to file through cli/main.py on phase 3's
+                1080p clip (40 frames; its depth mapped onto 1-30 m, as
+                phase 11's): (a) ``track`` at the defaults (LK, grid 36,
+                clip_len 120) and ``track --engine cotracker3 --weights``
+                on a file converted from a seeded upstream-layout state
+                dict at COTRACKER3; (b) ``align`` with each solver
+                (two-group, ``--assume_stationary_camera``,
+                ``--use_madpose``) on (a)'s LK tracks; (c) ``flow``
+                (RAFT_LARGE from a converted file) on 16 frames at batch 4,
+                with its peak memory; (d) ``slam`` without a checkpoint
+                and with a converted ``megasam`` file (DROID, bf16, the
+                global bundle adjustment on); each with its wall,
+                frames/s, peak memory and one clip's, chunk's, pair's,
+                batch's or window's device time, busy share and top
+                operations, counts zeroed before and read after (no
+                launch); (e) LK, CoTracker3, RAFT, DroidNet, one window
+                of the learned front-end and the bundle adjustment at
+                their tiny presets in float32 on the card and on the CPU
+                (the CPU tests' tolerances).
 
 It then prints a JSON line of the kernels' launches, times, bounds,
 library times (and kernel / library ratios), registers and spilled bytes,
@@ -2089,10 +2110,20 @@ def phase_files(dev):
                   "--batch_size", "4"])
         dt = time.perf_counter() - t0
         sbs = clip + "_depth.mkv_stereo.mkv"
+        # the preset pads a shorter clip to its 225-frame chunk: cut to the
+        # clip's 12 frames, as the checkpoints phase cuts it to its 16
+        from metric_depth_video_toolbox_tpu_torch.pipeline import \
+            infill_diffusion as idf
+        preset = idf.ENGINE_PRESETS["inspatio_world"]
+        full_chunk = preset["chunk"]
+        preset["chunk"] = 12
         t0 = time.perf_counter()
-        cli.main(["infill", "--sbs_color_video", sbs, "--color_video", clip,
-                  "--infill_engine", "inspatio_world", "--model_scale",
-                  "tiny"])
+        try:
+            cli.main(["infill", "--sbs_color_video", sbs, "--color_video",
+                      clip, "--infill_engine", "inspatio_world",
+                      "--model_scale", "tiny"])
+        finally:
+            preset["chunk"] = full_chunk
         dt_infill = time.perf_counter() - t0
         for out in (sbs, sbs + "_infilled.mkv"):
             with vio.VideoReader(out) as r:
@@ -2102,7 +2133,8 @@ def phase_files(dev):
                                    f"{w}")
         log(f"[files] depth -> stereo file to file, 12 frames 270x480 "
             f"(OpenCV {cv2.__version__}): {dt:.3f} s; infill (inspatio_world"
-            f", WAN_TINY at 480x832) file to file: {dt_infill:.3f} s")
+            f", WAN_TINY at 480x832, one 12-frame chunk) file to file: "
+            f"{dt_infill:.3f} s")
 
         # DA3 (its own copy of the clip: an existing depth video is kept),
         # then the fused stereo step on its depth video and FOV sidecar
@@ -2416,8 +2448,8 @@ def wan_shapes(cfg):
 def upstream_state_dict(shapes, gen, dev):
     """Seeded values for an upstream state dict, drawn on the card and kept
     on the host (float32): LeCun-normal matrices and kernels, norm weights
-    near 1, layer scales 1, small biases, N(0, 0.02) embeddings and
-    modulations."""
+    near 1, layer scales 1, small biases, batch-norm variances 1 + 0.1 |N|,
+    N(0, 0.02) embeddings, modulations and running means."""
     import math
 
     import torch
@@ -2434,6 +2466,8 @@ def upstream_state_dict(shapes, gen, dev):
             x = torch.ones_like(x)
         elif leaf == "bias":
             x *= 0.01
+        elif leaf == "running_var":
+            x = 1.0 + 0.1 * x.abs()
         else:
             x *= 0.02
         sd[name] = x.cpu()
@@ -3918,8 +3952,9 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
     frames), their relative disparity's difference gated; (f) the movie's
     step 2 with depthcrafter, then geometrycrafter, on one 40-frame scene.
     Each with its wall, frames/s, peak memory and one window's or batch's
-    device time, busy share and top device operations ((a), (a'), (b) and
-    (f) traced as they run: a 40-frame clip is one 110-frame window). Then
+    device time, busy share and top device operations ((a), (b) and (f)
+    traced as they run: a 40-frame clip is one 110-frame window; (a')
+    untraced, for the script's time). Then
     the card-vs-CPU checks of phase_reference_depth_engines. -> numbers"""
     import gc
 
@@ -4019,7 +4054,7 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
                             "engine", "depthcrafter", "--color_video", clip,
                             "--depth_video", ref, "--model", "svd",
                             "--use_depth_prompting", "--window", "25",
-                            "--overlap", "10"], n, profiled=True)
+                            "--overlap", "10"], n)
             eng = built[0]
             r["depth_m"] = depth_range(check_depth_file(
                 "(a')", out, n, phase=P))
@@ -4267,6 +4302,625 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
 
 
 
+# --- phase 14: tracking, pose and flow ---------------------------------------
+
+TR_FRAMES = 40          # phase 3's clip: track, align, slam
+TR_FLOW_FRAMES = 16     # (c): flow on the first 16 frames at batch 4
+TR_PROFILE_FRAMES = 8   # (a): the LK clip profiled on its first 8 frames
+TR_SEED = 14
+# card vs CPU at the tiny presets (the CPU tests' tolerances): model
+# outputs and poses within 1e-4 of the largest, LK positions within 1e-3
+# px where both keep the track, validity equal on all but 0.1%
+TR_REF_TOL, TR_REF_PX, TR_REF_FLIPS = 1e-4, 1e-3, 1e-3
+
+
+def _conv_shape(s, name, out_ch, in_ch, kh, kw=None, bias=True):
+    s[name + ".weight"] = (out_ch, in_ch, kh, kw or kh)
+    if bias:
+        s[name + ".bias"] = (out_ch,)
+
+
+def _bn_shape(s, name, ch):
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        s[f"{name}.{leaf}"] = (ch,)
+
+
+def raft_shapes(cfg):
+    """{name: shape} of a torchvision ``raft_large`` state dict at ``cfg``'s
+    widths."""
+    s = {}
+    for te, batch, out in (("feature_encoder", False, cfg.feat_dim),
+                           ("context_encoder", True,
+                            cfg.hidden_dim + cfg.context_dim)):
+        _conv_shape(s, f"{te}.convnormrelu.0", cfg.stem, 3, 7, bias=False)
+        if batch:
+            _bn_shape(s, f"{te}.convnormrelu.1", cfg.stem)
+        cin = cfg.stem
+        for li, (width, stride) in enumerate(zip(cfg.layers, (1, 2, 2))):
+            for bi in (0, 1):
+                b = f"{te}.layer{li + 1}.{bi}"
+                c0 = cin if bi == 0 else width
+                _conv_shape(s, b + ".convnormrelu1.0", width, c0, 3,
+                            bias=False)
+                _conv_shape(s, b + ".convnormrelu2.0", width, width, 3,
+                            bias=False)
+                if batch:
+                    _bn_shape(s, b + ".convnormrelu1.1", width)
+                    _bn_shape(s, b + ".convnormrelu2.1", width)
+                if bi == 0 and (stride != 1 or c0 != width):
+                    _conv_shape(s, b + ".downsample.0.0", width, c0, 1,
+                                bias=False)
+                    if batch:
+                        _bn_shape(s, b + ".downsample.0.1", width)
+            cin = width
+        _conv_shape(s, f"{te}.conv", out, cin, 1)
+    me = "update_block.motion_encoder"
+    cor = cfg.corr_levels * (2 * cfg.corr_radius + 1) ** 2
+    _conv_shape(s, f"{me}.convcorr1.0", cfg.motion_corr[0], cor, 1)
+    _conv_shape(s, f"{me}.convcorr2.0", cfg.motion_corr[1],
+                cfg.motion_corr[0], 3)
+    _conv_shape(s, f"{me}.convflow1.0", cfg.motion_flow[0], 2, 7)
+    _conv_shape(s, f"{me}.convflow2.0", cfg.motion_flow[1],
+                cfg.motion_flow[0], 3)
+    _conv_shape(s, f"{me}.conv.0", cfg.motion_out - 2,
+                cfg.motion_corr[1] + cfg.motion_flow[1], 3)
+    gru_in = cfg.hidden_dim + cfg.context_dim + cfg.motion_out
+    for g, (kh, kw) in ((1, (1, 5)), (2, (5, 1))):
+        for n in ("convz", "convr", "convq"):
+            _conv_shape(s, f"update_block.recurrent_block.convgru{g}.{n}",
+                        cfg.hidden_dim, gru_in, kh, kw)
+    _conv_shape(s, "update_block.flow_head.conv1", cfg.flow_head_hidden,
+                cfg.hidden_dim, 3)
+    _conv_shape(s, "update_block.flow_head.conv2", 2, cfg.flow_head_hidden,
+                3)
+    _conv_shape(s, "mask_predictor.convrelu.0", cfg.flow_head_hidden,
+                cfg.hidden_dim, 3)
+    _conv_shape(s, "mask_predictor.conv", 8 * 8 * 9, cfg.flow_head_hidden, 1)
+    return s
+
+
+def droid_shapes(cfg, prefix="module."):
+    """{name: shape} of a DROID-SLAM / Mega-SAM state dict at ``cfg``'s
+    widths (``module.``: Mega-SAM's DataParallel file), with one tensor of
+    Mega-SAM's motion head, which the converter ignores."""
+    s = {}
+    for enc, out in (("fnet", cfg.feat_dim), ("cnet", cfg.hidden
+                                              + cfg.context)):
+        _conv_shape(s, f"{prefix}{enc}.conv1", cfg.stem, 3, 7)
+        cin = cfg.stem
+        for li, width in enumerate(cfg.layers):
+            for ni in (0, 1):
+                b = f"{prefix}{enc}.layer{li + 1}.{ni}"
+                c0 = cin if ni == 0 else width
+                _conv_shape(s, b + ".conv1", width, c0, 3)
+                _conv_shape(s, b + ".conv2", width, width, 3)
+                if ni == 0 and (li > 0 or c0 != width):
+                    _conv_shape(s, b + ".downsample.0", width, c0, 1)
+            cin = width
+        _conv_shape(s, f"{prefix}{enc}.conv2", out, cin, 1)
+    u = prefix + "update."
+    hid = cfg.hidden
+    width = 128 if cfg.feat_dim >= 128 else hid * 2
+    _conv_shape(s, u + "corr_encoder.0", width, cfg.cor_planes, 1)
+    _conv_shape(s, u + "corr_encoder.2", hid, width, 3)
+    _conv_shape(s, u + "flow_encoder.0", width, 4, 7)
+    _conv_shape(s, u + "flow_encoder.2", hid // 2, width, 3)
+    gin = hid + cfg.context + hid + hid // 2
+    for n in ("convz", "convr", "convq"):
+        _conv_shape(s, f"{u}gru.{n}", hid, gin, 3)
+        _conv_shape(s, f"{u}gru.{n}_glo", hid, hid, 1)
+    _conv_shape(s, u + "gru.w", hid, hid, 1)
+    for head in ("delta", "weight"):
+        _conv_shape(s, f"{u}{head}.0", hid, hid, 3)
+        _conv_shape(s, f"{u}{head}.2", 2, hid, 3)
+    _conv_shape(s, u + "agg.conv1", hid, hid, 3)
+    _conv_shape(s, u + "agg.conv2", hid, hid, 3)
+    _conv_shape(s, u + "agg.eta.0", 1, hid, 3)
+    _conv_shape(s, u + "agg.upmask.0", cfg.upsample_factor ** 2 * 9, hid, 1)
+    _conv_shape(s, u + "motion_head.0", 2, hid, 3)
+    return s
+
+
+def cotracker3_shapes(cfg):
+    """{name: shape} of a ``cotracker3_offline`` state dict at ``cfg``'s
+    widths (upstream's ``virual_tracks`` spelling)."""
+    s = {}
+    d = cfg.latent_dim
+    dims = (d // 2, (d // 4) * 3, d, d)
+    _conv_shape(s, "fnet.conv1", d // 2, 3, 7)
+    cin = d // 2
+    for li, (width, stride) in enumerate(zip(dims, (1, 2, 2, 2))):
+        for bi in (0, 1):
+            b = f"fnet.layer{li + 1}.{bi}"
+            c0 = cin if bi == 0 else width
+            _conv_shape(s, b + ".conv1", width, c0, 3)
+            _conv_shape(s, b + ".conv2", width, width, 3)
+            if bi == 0 and (stride != 1 or c0 != width):
+                _conv_shape(s, b + ".downsample.0", width, c0, 1)
+        cin = width
+    _conv_shape(s, "fnet.conv2", 2 * d, sum(dims), 3)
+    _conv_shape(s, "fnet.conv3", d, 2 * d, 1)
+    s["corr_mlp.fc1.weight"] = (cfg.corr_mlp_hidden, cfg.window ** 4)
+    s["corr_mlp.fc1.bias"] = (cfg.corr_mlp_hidden,)
+    s["corr_mlp.fc2.weight"] = (cfg.corr_emb_dim, cfg.corr_mlp_hidden)
+    s["corr_mlp.fc2.bias"] = (cfg.corr_emb_dim,)
+    hs = cfg.hidden_size
+    mlp = int(hs * cfg.mlp_ratio)
+    u = "updateformer."
+    s[u + "input_transform.weight"] = (hs, cfg.input_dim)
+    s[u + "input_transform.bias"] = (hs,)
+    s[u + "virual_tracks"] = (1, cfg.num_virtual_tracks, 1, hs)
+
+    def block(p, attn):
+        norms = ("norm1", "norm2") + (("norm_context",) if attn ==
+                                      "cross_attn" else ())
+        for n in norms:
+            s[f"{p}.{n}.weight"] = (hs,)
+            s[f"{p}.{n}.bias"] = (hs,)
+        for m, out in (("to_q", hs), ("to_kv", 2 * hs), ("to_out", hs)):
+            s[f"{p}.{attn}.{m}.weight"] = (out, hs)
+            s[f"{p}.{attn}.{m}.bias"] = (out,)
+        s[f"{p}.mlp.fc1.weight"] = (mlp, hs)
+        s[f"{p}.mlp.fc1.bias"] = (mlp,)
+        s[f"{p}.mlp.fc2.weight"] = (hs, mlp)
+        s[f"{p}.mlp.fc2.bias"] = (hs,)
+    for i in range(cfg.time_depth):
+        block(f"{u}time_blocks.{i}", "attn")
+    for j in range(cfg.space_depth):
+        block(f"{u}space_virtual_blocks.{j}", "attn")
+        block(f"{u}space_point2virtual_blocks.{j}", "cross_attn")
+        block(f"{u}space_virtual2point_blocks.{j}", "cross_attn")
+    for head in ("flow_head", "vis_conf_head"):
+        s[f"{u}{head}.weight"] = (2, hs)
+        s[f"{u}{head}.bias"] = (2,)
+    return s
+
+
+def converted_file(tmp, name, kind, shapes, gen, dev, cfg=None):
+    """A seeded upstream-layout state dict written with torch.save,
+    converted by convert_torch_file, written by save_checkpoint -> (path,
+    seconds, parameter count)."""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import convert
+
+    t0 = time.perf_counter()
+    pth = os.path.join(tmp, name + ".pth")
+    torch.save(upstream_state_dict(shapes, gen, dev), pth)
+    tree = convert.convert_torch_file(pth, kind, cfg)
+    path = os.path.join(tmp, name + ".msgpack")
+    convert.save_checkpoint(path, tree)
+    n = sum(int(np.prod(np.shape(leaf))) for _, leaf in tree_leaves(tree))
+    return path, time.perf_counter() - t0, n
+
+
+def check_tracks(tag, path, n):
+    """The tracking file's frames and tracks -> (frames with a track,
+    distinct ids)."""
+    import numpy as np
+
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+
+    rows = sidecar.load_tracking(path)
+    if len(rows) != n:
+        raise RuntimeError(f"{tag}: {len(rows)} frames of tracks, not {n}")
+    ids = {int(r[0]) for f in rows for r in f}
+    if not all(np.isfinite(f).all() for f in rows):
+        raise RuntimeError(f"{tag}: non-finite track rows")
+    return sum(1 for f in rows if len(f)), len(ids)
+
+
+def check_poses(tag, path, n):
+    import numpy as np
+
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+
+    tr = sidecar.load_transformations(path)
+    if tr.shape != (n, 4, 4) or not np.isfinite(tr).all():
+        raise RuntimeError(f"{tag}: transformations {tr.shape}, finite "
+                           f"{np.isfinite(tr).all()}")
+    if np.abs(tr[0] - np.eye(4)).max() > 1e-4:
+        raise RuntimeError(f"{tag}: frame 0 is not the identity")
+    return float(np.linalg.norm(tr[-1][:3, 3]))
+
+
+def phase_reference_tracking(dev, card):
+    """The tracking models at their tiny presets in float32 on the card and
+    on the CPU, on the same inputs and weights (drawn on the CPU): LK
+    over a panning clip, CoTracker3 at COTRACKER3_TINY (its flow head
+    scaled by 0.01 and its visibility bias at 3, as the CPU tests share),
+    RAFT_TINY (a 9-row feature grid: the odd pyramid level), DroidNet at
+    DROID_TINY and one window of the learned front-end, and the bundle
+    adjustment. -> {name: difference share}"""
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import cotracker as ct
+    from metric_depth_video_toolbox_tpu_torch.models import droid as dm
+    from metric_depth_video_toolbox_tpu_torch.models import from_jax
+    from metric_depth_video_toolbox_tpu_torch.models import raft as rf
+    from metric_depth_video_toolbox_tpu_torch.models import tracker as trk
+    from metric_depth_video_toolbox_tpu_torch.pipeline import slam
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(TR_SEED)
+    out = {}
+
+    def share(a, b):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+
+    def both(make, fn):
+        """fn(model, device) on the CPU and on the card; the model built
+        once (seeded on the CPU), copied to the card."""
+        m = make()
+        want = fn(m, cpu)
+        got = fn(m.to(dev), dev)
+        m.to(cpu)
+        return got, want
+
+    # LK over a panning texture
+    base = rng.integers(0, 200, (25, 40, 3)).astype(np.float32)
+    tex = torch.nn.functional.interpolate(
+        torch.from_numpy(base).permute(2, 0, 1)[None], scale_factor=4,
+        mode="bilinear")[0].permute(1, 2, 0).numpy()
+    clip = np.stack([tex[:72, 2 * i:2 * i + 96] for i in range(8)]).astype(
+        np.uint8)
+    pts, ok = trk.generate_grid_queries(clip[0], grid=8)
+    res = []
+    for d in (dev, cpu):
+        traj, vis = trk.lk_track_clip(torch.from_numpy(clip).to(d),
+                                      torch.from_numpy(pts).to(d),
+                                      torch.from_numpy(ok).to(d))
+        res.append((traj.cpu().numpy(), vis.cpu().numpy() > 0))
+    (tg, vg), (tw, vw) = res
+    flips = float((vg != vw).mean())
+    both_ok = vg & vw
+    px = float(np.abs(tg[both_ok] - tw[both_ok]).max())
+    if flips > TR_REF_FLIPS or px > TR_REF_PX or not both_ok.any():
+        raise RuntimeError(f"tracking reference: LK card vs CPU: {flips} "
+                           f"validity flips, {px} px")
+    out["lk_px"], out["lk_flips"] = px, flips
+
+    # CoTracker3 tiny
+    def cotracker():
+        m = ct.CoTracker3(ct.COTRACKER3_TINY)
+        from_jax.flax_like_init(m, torch.Generator().manual_seed(1),
+                                normal=("virtual_tracks",))
+        with torch.no_grad():
+            m.updateformer.flow_head.weight.mul_(0.01)
+            m.updateformer.vis_conf_head.bias.fill_(3.0)
+        return m.eval()
+    video = torch.from_numpy(rng.uniform(0, 255, (4, 48, 64, 3)).astype(
+        np.float32))
+    queries = torch.tensor([[0, 10.3, 12.7], [1, 30.1, 20.4],
+                            [0, 50.0, 40.2], [3, 63.5, 47.5]])
+    with torch.no_grad():
+        got, want = both(cotracker, lambda m, d: m(video.to(d),
+                                                   queries.to(d)))
+    out["cotracker3"] = max(share(got[k], want[k]) for k in want)
+
+    # RAFT tiny, 72 x 64 frames: a 9 x 8 feature grid
+    a = torch.from_numpy(rng.integers(0, 255, (2, 72, 64, 3)).astype(
+        np.uint8))
+    b = torch.roll(a, 2, dims=2)
+
+    def raft():
+        return from_jax.flax_like_init(rf.RAFT(rf.RAFT_TINY),
+                                       torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        got, want = both(raft, lambda m, d: m(a.to(d), b.to(d)))
+    out["raft"] = share(got, want)
+
+    # DroidNet tiny: features and one update over 4 edges
+    img = torch.from_numpy(rng.uniform(0, 1, (3, 64, 80, 3)).astype(
+        np.float32))
+    corr = torch.from_numpy(rng.standard_normal(
+        (4, dm.DROID_TINY.cor_planes, 8, 10)).astype(np.float32))
+    flow = torch.from_numpy(rng.standard_normal((4, 4, 8, 10)).astype(
+        np.float32))
+    src = torch.tensor([0, 1, 1, 2])
+
+    def droid():
+        return from_jax.flax_like_init(dm.DroidNet(dm.DROID_TINY),
+                                       torch.Generator().manual_seed(3))
+
+    def droid_run(m, d):
+        fm, net, inp = m.features(img.to(d))
+        s = src.to(d)
+        return (fm,) + tuple(m.update(net[s], inp[s], corr.to(d),
+                                      flow.to(d), s, 3))
+    with torch.no_grad():
+        got, want = both(droid, droid_run)
+    out["droid"] = max(share(g, w) for g, w in zip(got, want))
+
+    # one window of the learned front-end (depths 1-8 m: a yaw and a
+    # sideways move told apart)
+    k8 = np.array([[10.0, 0, 6.0], [0, 10.0, 4.0], [0, 0, 1]], np.float32)
+    depth8 = torch.from_numpy(rng.uniform(1, 8, (5, 8, 12)).astype(
+        np.float32))
+    imgs = torch.from_numpy(rng.uniform(0, 1, (5, 64, 96, 3)).astype(
+        np.float32))
+    wmask8 = torch.ones((5, 8, 12))
+
+    def window(m, d):
+        with torch.no_grad():
+            feats = m.features(imgs.to(d))
+        solve = slam._build_window_solver(m, dm.DROID_TINY, k8, 5, 8, 12, 2,
+                                          2, 2)
+        return solve(*feats, depth8.to(d), wmask8.to(d))
+    got, want = both(droid, window)
+    out["droid_window"] = max(share(g, w) for g, w in zip(got[:2],
+                                                           want[:2]))
+
+    # the bundle adjustment: 5 frames, 24 tracks, noisy initial poses
+    n = 24
+    pts3 = np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.7, 0.7, n),
+                     rng.uniform(2.5, 4.5, n)], -1)
+    kk = np.array([[80.0, 0, 48.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+    uv = np.zeros((5, n, 2), np.float32)
+    rv = np.zeros((5, 3), np.float32)
+    tv = np.zeros((5, 3), np.float32)
+    for fi in range(5):
+        tv[fi] = [0.05 * fi, 0.01 * fi, 0.03 * fi]
+        rv[fi] = [0.0, -0.012 * fi, 0.0]
+        r = slam.solvers._so3_exp(torch.from_numpy(rv[fi])).numpy()
+        pc = pts3 @ r.T + tv[fi]
+        uv[fi] = pc[:, :2] / pc[:, 2:] * 80.0 + [48.0, 32.0]
+    noise = rng.normal(0, 0.005, (2, 5, 3)).astype(np.float32)
+    noise[:, 0] = 0
+    args = [uv, np.ones((5, n), np.float32), pts3[:, 2].astype(np.float32),
+            kk, rv + noise[0], tv + noise[1]]
+    res = [slam.bundle_adjust(*[torch.from_numpy(x).to(d) for x in args],
+                              iters=4, optimize_focal=True)
+           for d in (dev, cpu)]
+    out["bundle_adjust"] = max(share(g, w) for g, w in zip(
+        res[0][:2], res[1][:2]))
+    bad = {k: v for k, v in out.items() if not k.startswith("lk")
+           and v > TR_REF_TOL}
+    if bad:
+        raise RuntimeError(f"tracking reference: card vs CPU beyond "
+                           f"{TR_REF_TOL}: {bad}")
+    log(f"[tracking] ({card}) card vs CPU, tiny presets, float32: " +
+        ", ".join(f"{k} {v:.3e}" for k, v in out.items()))
+    return out
+
+
+def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card):
+    """Tracking, pose and flow file to file through cli/main.py on phase
+    3's 1080p clip (its depth mapped onto 1-30 m, as phase 11's), seeded
+    weights, no kernel of the repo on any path: (a) ``track`` at the
+    defaults (LK, grid 36, clip_len 120) and ``track --engine cotracker3
+    --weights`` on a file converted from a seeded upstream-layout state
+    dict at COTRACKER3; (b) ``align`` with each solver on (a)'s LK tracks;
+    (c) ``flow`` (RAFT_LARGE from a converted file) on 16 frames at batch
+    4; (d) ``slam`` without a checkpoint (LK, the two-group poses, the
+    global bundle adjustment) and with a converted ``megasam`` file (DROID,
+    the global bundle adjustment on). Each with its wall, frames/s, peak
+    memory and one clip's, chunk's, pair's, batch's or window's device
+    time, busy share and top operations; counts zeroed before and read
+    after each run. Then phase_reference_tracking. -> numbers"""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.cli import optical_flow
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.models import convert
+    from metric_depth_video_toolbox_tpu_torch.models import cotracker as ct
+    from metric_depth_video_toolbox_tpu_torch.models import droid as dm
+    from metric_depth_video_toolbox_tpu_torch.models import from_jax
+    from metric_depth_video_toolbox_tpu_torch.models import raft as rf
+    from metric_depth_video_toolbox_tpu_torch.models import tracker as trk
+    from metric_depth_video_toolbox_tpu_torch.ops import codec
+    from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
+    from metric_depth_video_toolbox_tpu_torch.ops import image as im
+    from metric_depth_video_toolbox_tpu_torch.pipeline import align, slam
+
+    t_phase = time.perf_counter()
+    n, nf = TR_FRAMES, TR_FLOW_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(TR_SEED)
+    res = {}
+    P = "tracking"
+
+    def command(tag, argv, n_frames):
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"{P} {tag}", {}, "no kernel of the repo on this path")
+        r = {"wall_s": wall, "fps": n_frames / wall,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"[{P}] ({card}) {tag}: {wall:.3f} s, {r['fps']:.3f} frames/s, "
+            f"peak {r['peak_gib']:.2f} GiB (the phase at "
+            f"{time.perf_counter() - t_phase:.1f} s)")
+        return r
+
+    def profiled(tag, fn):
+        zero_counts()
+        p = profile_fn(P, tag, fn, card)
+        expect_counts(f"{P} {tag}", {}, "no kernel of the repo on this path")
+        return p
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.mkv")
+        vio.save_rgb_video(frames[:n], clip, 24)
+        depth = film_depth(metric[:n])
+        depth_file = clip + "_depth.mkv"
+        vio.save_depth_video(depth, depth_file, 24, 100.0)
+        frames_dev = torch.from_numpy(np.ascontiguousarray(frames[:n])).to(
+            dev)
+
+        # (a) track: LK at the defaults, then CoTracker3 from a file
+        r = command("(a) track (lk, grid 36, clip_len 120)",
+                    ["track", "--color_video", clip], n)
+        lk_tracks = os.path.join(tmp, "lk_tracking.json")
+        shutil.copy(clip + "_tracking.json", lk_tracks)
+        r["frames_with_tracks"], r["tracks"] = check_tracks(
+            "(a) lk", lk_tracks, n)
+        pts, ok = trk.generate_grid_queries(frames_dev[0], grid=36)
+        pts_t = torch.from_numpy(pts).to(dev)
+        ok_t = torch.from_numpy(ok).to(dev)
+        # 8 frames: the tracer's teardown grows with the ~1400 launches of
+        # each frame pair (40 frames cost it 10 s)
+        r["profile"] = profiled(f"(a) lk_track_clip, {TR_PROFILE_FRAMES} "
+                                f"frames, {len(pts)} queries",
+                                lambda: trk.lk_track_clip(
+                                    frames_dev[:TR_PROFILE_FRAMES], pts_t,
+                                    ok_t))
+        res["track_lk"] = r
+
+        ckpt, secs, nparam = converted_file(
+            tmp, "cotracker3", "cotracker3",
+            cotracker3_shapes(ct.COTRACKER3), gen, dev)
+        r = command("(a) track --engine cotracker3 --weights (COTRACKER3)",
+                    ["track", "--color_video", clip, "--engine",
+                     "cotracker3", "--weights", ckpt], n)
+        r["frames_with_tracks"], r["tracks"] = check_tracks(
+            "(a) cotracker3", clip + "_tracking.json", n)
+        r["params_m"], r["convert_s"] = nparam / 1e6, secs
+        eng = ct.CoTracker3Engine(params=convert.load_checkpoint(ckpt),
+                                  device=dev)
+        mh, mw = ct.COTRACKER3.model_resolution
+        video = im.resize(frames_dev.to(torch.float32), (mh, mw))
+        q = torch.cat([torch.zeros(256, 1, device=dev),
+                       pts_t[:256] * torch.tensor(
+                           [mw / W, mh / H], device=dev)], 1)
+        with torch.no_grad():
+            r["profile"] = profiled(
+                f"(a) CoTracker3 one chunk: {n} frames at {mh} x {mw}, 256 "
+                f"queries, {eng.iters} iterations",
+                lambda: eng.model(video, q, iters=eng.iters))
+        res["track_cotracker3"] = r
+        del eng, video
+        log(f"[{P}] (a) CoTracker3 {nparam / 1e6:.1f} M parameters, file "
+            f"converted and written in {secs:.1f} s")
+
+        # (b) align, each solver, on (a)'s LK tracks
+        k = geo.camera_matrix_from_fov(W, H, xfov_deg=60.0).to(dev)
+        dense, _ = sidecar.tracking_to_dense(sidecar.load_tracking(
+            lk_tracks), max_tracks=4096)
+        with vio.VideoReader(depth_file) as dv:
+            rgb2 = torch.from_numpy(dv.read_batch(2)).to(dev)
+        d0 = codec.decode_depth_frame(rgb2[0], 100.0, average_rg=True)
+        d1 = codec.decode_depth_frame(rgb2[1], 100.0, average_rg=True)
+        pair = (torch.from_numpy(dense[1, :, :2]).to(dev),
+                torch.from_numpy(dense[0, :, :2]).to(dev), d1, d0, k,
+                torch.from_numpy(dense[1, :, 2] * dense[0, :, 2]).to(dev))
+        for solver, flags in (("two_group", []),
+                              ("stationary", ["--assume_stationary_camera"]),
+                              ("hybrid", ["--use_madpose"])):
+            tag = f"(b) align {' '.join(flags) or '(two_group)'}"
+            r = command(tag, ["align", "--depth_video", depth_file,
+                              "--track_file", lk_tracks, "--xfov", "60"]
+                        + flags, n)
+            r["last_camera_m"] = check_poses(
+                tag, depth_file + "_transformations.json", n)
+            r["profile"] = profiled(
+                f"(b) {solver}: one frame pair, {dense.shape[1]} tracks",
+                lambda s=solver: align.SOLVERS[s](*pair))
+            res[f"align_{solver}"] = r
+
+        # (c) flow: RAFT_LARGE from a converted file, 16 frames, batch 4
+        clip16 = os.path.join(tmp, "clip16.mkv")
+        vio.save_rgb_video(frames[:nf], clip16, 24)
+        raft_ckpt, secs, nparam = converted_file(
+            tmp, "raft", "raft", raft_shapes(rf.RAFT_LARGE), gen, dev)
+        r = command(f"(c) flow (RAFT_LARGE, batch 4), {nf} frames",
+                    ["flow", "--color_video", clip16, "--checkpoint",
+                     raft_ckpt], nf)
+        flow_frames = vio.read_video_frames(clip16 + "_flow.mkv")[0]
+        if flow_frames.shape != (nf, H, W, 3):
+            raise RuntimeError(f"(c) flow video {flow_frames.shape}")
+        r["params_m"], r["convert_s"] = nparam / 1e6, secs
+        model = optical_flow.flow_model(raft_ckpt, device=dev)
+        a, b = frames_dev[:4], frames_dev[1:5]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            r["profile"] = profiled(
+                "(c) RAFT_LARGE one batch of 4 pairs at 1080 x 1920 "
+                "(12 iterations) + colour coding",
+                lambda: rf.flow_to_rgb(model(a, b)))
+        r["batch_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[{P}] (c) RAFT_LARGE {nparam / 1e6:.2f} M parameters; one "
+            f"batch of 4 pairs peaks at {r['batch_peak_gib']:.2f} GiB "
+            f"(level 0 of the correlation: 4 x 32400^2 x 4 B = 15.6 GiB)")
+        res["flow"] = r
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) slam: LK + global BA, then the learned front-end from a file
+        r = command("(d) slam (LK, two-group poses, global BA 10 iters)",
+                    ["slam", "--color_video", clip, "--depth_video",
+                     depth_file, "--xfov", "60"], n)
+        r["last_camera_m"] = check_poses(
+            "(d) slam", depth_file + "_transformations.json", n)
+        dense, _ = sidecar.tracking_to_dense(sidecar.load_tracking(
+            clip + "_tracking.json"), max_tracks=512)
+        init = sidecar.load_transformations(
+            depth_file + "_init_transformations.json")
+        xi = np.clip(np.round(dense[..., 0]).astype(int), 0, W - 1)
+        yi = np.clip(np.round(dense[..., 1]).astype(int), 0, H - 1)
+        depths_at = depth[np.arange(n)[:, None], yi, xi]
+        k_np = k.cpu().numpy()
+        wts = slam.motion_weights(dense, init, depths_at, k_np)
+        r["profile"] = profiled(
+            f"(d) bundle adjustment: {n} frames x {dense.shape[1]} tracks, "
+            f"10 iterations",
+            lambda: slam._refine(dense, depths_at, init, k_np, wts, 10,
+                                 False, dev))
+        res["slam_lk"] = r
+
+        droid_ckpt, secs, nparam = converted_file(
+            tmp, "megasam", "megasam", droid_shapes(dm.DROID), gen, dev)
+        r = command("(d) slam --checkpoint megasam (DROID, bf16, global BA)",
+                    ["slam", "--color_video", clip, "--depth_video",
+                     depth_file, "--xfov", "60", "--checkpoint",
+                     droid_ckpt], n)
+        r["last_camera_m"] = check_poses(
+            "(d) slam droid", depth_file + "_transformations.json", n)
+        r["params_m"], r["convert_s"] = nparam / 1e6, secs
+        params = convert.load_checkpoint(droid_ckpt)
+        cfg = dm.config_from_params(params)
+        net = from_jax.load_params(dm.DroidNet(cfg), params).to(dev).eval()
+        scale = 336 / max(H, W)           # the CLI's --droid_work_long
+        wh = max(16, int(round(H * scale / 16)) * 16)
+        ww = max(16, int(round(W * scale / 16)) * 16)
+        k8 = k_np.copy()
+        k8[0] *= ww / W / 8.0
+        k8[1] *= wh / H / 8.0
+        win = min(12, n)                  # the CLI's --droid_window
+        with torch.no_grad():
+            feats = net.features(im.resize(
+                frames_dev[:win].to(torch.float32) / 255.0, (wh, ww)))
+        depth8 = im.resize_nchw(torch.from_numpy(depth[:win]).to(dev)[
+            :, None], (wh // 8, ww // 8))[:, 0]
+        solve = slam._build_window_solver(net, cfg, k8, win, wh // 8,
+                                          ww // 8, 6, 2, 2)
+        wmask8 = torch.ones_like(depth8)
+        r["profile"] = profiled(
+            f"(d) DROID one window: {win} frames, radius 2, {wh // 8} x "
+            f"{ww // 8} grid, 6 updates x 2 Gauss-Newton steps",
+            lambda: solve(*feats, depth8, wmask8))
+        res["slam_droid"] = r
+        del net, feats, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["reference"] = phase_reference_tracking(dev, card)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{P}] ({card}) phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main():
     t_script = time.perf_counter()
     try:
@@ -4293,10 +4947,11 @@ def main():
                      help="also build the two sweep sources of this csrc "
                           "directory and time them beside this checkout's "
                           "(phase 2's bitmap ablation)")
-    cli.add_argument("--only", choices=("single_frame", "depth_engines"),
+    cli.add_argument("--only", choices=("single_frame", "depth_engines",
+                                        "tracking"),
                      help="run the build, phases 3-4 (the clip and the SBS "
-                          "frames it needs) and this phase alone; prints "
-                          "no device line")
+                          "frames it needs; tracking: phase 3 alone) and "
+                          "this phase alone; prints no device line")
     opts = cli.parse_args()
     baseline_csrc = opts.baseline_csrc
 
@@ -4365,6 +5020,18 @@ def main():
         single_frame = phase_single_frame(frames, sbs, dev, zero_counts,
                                           counts, expect_counts, smi[0])
         log(json.dumps({"single_frame": single_frame, "card": smi[0]}))
+        log(smi[0])
+        return 0
+    if opts.only == "tracking":
+        metric, frames, _ = phase_depth(gen, dev)
+        mark("depth")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tracking = phase_tracking(metric, frames, dev, zero_counts,
+                                  expect_counts, smi[0])
+        mark("tracking")
+        log(json.dumps({"tracking": tracking, "card": smi[0]}))
+        log(json.dumps({"phase_end_s": phase_end_s}))
         log(smi[0])
         return 0
     if opts.only == "depth_engines":
@@ -4470,6 +5137,11 @@ def main():
     depth_engines = phase_depth_engines(metric, frames, dev, zero_counts,
                                         expect_counts, smi[0])
     mark("depth_engines")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tracking = phase_tracking(metric, frames, dev, zero_counts,
+                              expect_counts, smi[0])
+    mark("tracking")
 
     def over(r):
         return r["ms"] / r["library_ms"] if r.get("library_ms") else None
@@ -4584,6 +5256,7 @@ def main():
     log(json.dumps({"stereo_paths": stereo_paths, "card": smi[0]}))
     log(json.dumps({"single_frame": single_frame, "card": smi[0]}))
     log(json.dumps({"depth_engines": depth_engines, "card": smi[0]}))
+    log(json.dumps({"tracking": tracking, "card": smi[0]}))
     log(json.dumps({"phase_end_s": phase_end_s}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])

@@ -20,6 +20,11 @@
                        split, run)
   mdvt-torch upscale   upscale a low-res metric depth video with the colour
                        video as guidance (PromptDA)
+  mdvt-torch track     track_points_in_video (pyramidal LK or CoTracker3)
+  mdvt-torch align     align_3d_points: camera poses from tracks + depth
+  mdvt-torch flow      optical_flow (RAFT) -> colour-coded flow video
+  mdvt-torch slam      sam_track_video: camera tracking with global bundle
+                       adjustment (LK, or the DROID-class front-end)
 
 The JAX package's other subcommands are not ported yet; naming one says
 so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
@@ -58,11 +63,18 @@ SUBCOMMANDS = {
     "project": ("metric_depth_video_toolbox_tpu_torch.cli.project", "main"),
     "upscale": ("metric_depth_video_toolbox_tpu_torch.cli.upscale_depth",
                 "main"),
+    "track": ("metric_depth_video_toolbox_tpu_torch.cli."
+              "track_points_in_video", "main"),
+    "align": ("metric_depth_video_toolbox_tpu_torch.cli.align_3d_points",
+              "main"),
+    "flow": ("metric_depth_video_toolbox_tpu_torch.cli.optical_flow",
+             "main"),
+    "slam": ("metric_depth_video_toolbox_tpu_torch.cli.sam_track_video",
+             "main"),
 }
 
 # the JAX package's other subcommands -> the ROADMAP item that ports them
-NOT_PORTED = {"track": "A14", "align": "A14", "flow": "A14", "slam": "A14",
-              "export": "A15", "analyse-tracking": "A15",
+NOT_PORTED = {"export": "A15", "analyse-tracking": "A15",
               "analyse-depth": "A15", "gui": "A15", "bench": "A9"}
 
 

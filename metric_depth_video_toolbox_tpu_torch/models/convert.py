@@ -13,10 +13,9 @@ Covered: DINOv2 (original and HF layouts), the DPT heads, DA-V2, DA3,
 Video-Depth-Anything, PromptDA (HF layout), MoGe, UniDepth-V2, UniK3D,
 DepthPro (HF layout), Wan (InSpatio-World), U²-Net, the SVD family
 (StereoCrafter UNet and VAE, GeometryCrafter's point-map VAE, the m2svid
-sgm checkpoint) and the CLIP vision tower. The converters
-of engines not ported yet wait for their ROADMAP items
-(``convert_torch_file`` names them). Files are read and written by
-``io.checkpoint`` (Flax's msgpack or a pickle), without JAX.
+sgm checkpoint), the CLIP vision tower, DROID / Mega-SAM, torchvision's
+RAFT and CoTracker3. Files are read and written by ``io.checkpoint``
+(Flax's msgpack or a pickle), without JAX.
 """
 
 from __future__ import annotations
@@ -594,6 +593,213 @@ def convert_wan(state_dict, cfg):
     return {"params": p}
 
 
+def convert_droid(state_dict, cfg=None):
+    """A DROID-SLAM-class checkpoint (Mega-SAM's ``megasam_final.pth``) ->
+    ``models.droid.DroidNet``'s tree. The DataParallel ``module.`` prefix
+    is stripped; fnet. / cnet. BasicEncoders (conv1, layerL.N.{conv1,
+    conv2, downsample.0}, conv2; the instance norms carry no tensors),
+    update.{corr_encoder.0/.2, flow_encoder.0/.2, gru.{convz, convr,
+    convq, w, convz_glo, convr_glo, convq_glo}, delta.0/.2, weight.0/.2,
+    agg.{conv1, conv2, eta.0, upmask.0}}; other tensors (Mega-SAM's
+    motion head) are ignored. ``cfg`` (default DROID): its layer count."""
+    from metric_depth_video_toolbox_tpu_torch.models import droid as dm
+    cfg = cfg or dm.DROID
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in state_dict.items()}
+
+    def encoder(prefix):
+        p = {"conv1": conv(sd, prefix + "conv1"),
+             "conv2": conv(sd, prefix + "conv2")}
+        for li in range(len(cfg.layers)):
+            for ni in range(2):
+                tb = f"{prefix}layer{li + 1}.{ni}"
+                blk = {"conv1": conv(sd, tb + ".conv1"),
+                       "conv2": conv(sd, tb + ".conv2")}
+                if tb + ".downsample.0.weight" in sd:
+                    blk["downsample"] = conv(sd, tb + ".downsample.0")
+                p[f"layer{li + 1}_{ni}"] = blk
+        return p
+
+    u = "update."
+    upd = {
+        "corr_enc1": conv(sd, u + "corr_encoder.0"),
+        "corr_enc2": conv(sd, u + "corr_encoder.2"),
+        "flow_enc1": conv(sd, u + "flow_encoder.0"),
+        "flow_enc2": conv(sd, u + "flow_encoder.2"),
+        "gru": {n: conv(sd, f"{u}gru.{n}") for n in
+                ("convz", "convr", "convq", "w",
+                 "convz_glo", "convr_glo", "convq_glo")},
+        "delta1": conv(sd, u + "delta.0"),
+        "delta2": conv(sd, u + "delta.2"),
+        "weight1": conv(sd, u + "weight.0"),
+        "weight2": conv(sd, u + "weight.2"),
+        "agg_conv1": conv(sd, u + "agg.conv1"),
+        "agg_conv2": conv(sd, u + "agg.conv2"),
+        "agg_eta": conv(sd, u + "agg.eta.0"),
+        "agg_upmask": conv(sd, u + "agg.upmask.0"),
+    }
+    return {"params": {"fnet": encoder("fnet."),
+                       "cnet": encoder("cnet."),
+                       "update": upd}}
+
+
+def convert_raft(state_dict, cfg=None):
+    """torchvision ``raft_large`` checkpoint -> ``models.raft.RAFT``'s
+    tree: feature_encoder / context_encoder (convnormrelu stem,
+    layer{1,2,3} of two ResidualBlocks, the 1x1 conv; the context
+    encoder's batch norms), update_block.{motion_encoder,
+    recurrent_block.convgru{1,2}, flow_head}, mask_predictor."""
+    sd = state_dict
+
+    def encoder(te, batch):
+        p = {"stem": {"conv": conv(sd, f"{te}.convnormrelu.0")},
+             "proj": conv(sd, f"{te}.conv")}
+        if batch:
+            p["stem"]["norm"] = batchnorm(sd, f"{te}.convnormrelu.1")
+        for li in (1, 2, 3):
+            for bi in (0, 1):
+                b = f"{te}.layer{li}.{bi}"
+                blk = {"convnormrelu1": {
+                           "conv": conv(sd, b + ".convnormrelu1.0")},
+                       "convnormrelu2": {
+                           "conv": conv(sd, b + ".convnormrelu2.0")}}
+                if batch:
+                    blk["convnormrelu1"]["norm"] = batchnorm(
+                        sd, b + ".convnormrelu1.1")
+                    blk["convnormrelu2"]["norm"] = batchnorm(
+                        sd, b + ".convnormrelu2.1")
+                if b + ".downsample.0.0.weight" in sd:
+                    blk["down_conv"] = conv(sd, b + ".downsample.0.0")
+                    if batch:
+                        blk["down_norm"] = batchnorm(
+                            sd, b + ".downsample.0.1")
+                p[f"layer{li}_{bi}"] = blk
+        return p
+
+    p = {"fnet": encoder("feature_encoder", batch=False),
+         "cnet": encoder("context_encoder", batch=True)}
+    me = "update_block.motion_encoder"
+    p["motion"] = {n: {"conv": conv(sd, f"{me}.{n}.0")}
+                   for n in ("convcorr1", "convcorr2", "convflow1",
+                             "convflow2", "conv")}
+    for g in (1, 2):
+        p[f"gru{g}"] = {n: conv(
+            sd, f"update_block.recurrent_block.convgru{g}.{n}")
+            for n in ("convz", "convr", "convq")}
+    p["flow_head1"] = conv(sd, "update_block.flow_head.conv1")
+    p["flow_head2"] = conv(sd, "update_block.flow_head.conv2")
+    p["mask_conv1"] = {"conv": conv(sd, "mask_predictor.convrelu.0")}
+    p["mask_conv2"] = conv(sd, "mask_predictor.conv")
+    return {"params": p}
+
+
+def _virtual_tracks_key(sd):
+    # upstream spells it "virual_tracks"; "virtual_tracks" is accepted too
+    return ("updateformer.virual_tracks" if "updateformer.virual_tracks"
+            in sd else "updateformer.virtual_tracks")
+
+
+def convert_cotracker3(state_dict, cfg=None):
+    """facebookresearch/co-tracker ``cotracker3_offline`` state dict ->
+    ``models.cotracker.CoTracker3``'s tree; every dimension comes from the
+    tensors' shapes. Keys: fnet.{conv1, conv2, conv3}, fnet.layer{1..4}
+    .{0,1}.{conv1, conv2, downsample.0}, corr_mlp.{fc1, fc2},
+    updateformer.{input_transform, virual_tracks, time_blocks.N,
+    space_virtual_blocks.N, space_point2virtual_blocks.N,
+    space_virtual2point_blocks.N, flow_head, vis_conf_head} with the
+    blocks' attn / cross_attn.{to_q, to_kv, to_out}, norm1 / norm2 /
+    norm_context, mlp.{fc1, fc2}."""
+    sd = state_dict
+
+    fnet = {"conv1": conv(sd, "fnet.conv1"),
+            "conv2": conv(sd, "fnet.conv2"),
+            "conv3": conv(sd, "fnet.conv3")}
+    for li in (1, 2, 3, 4):
+        for bi in (0, 1):
+            b = f"fnet.layer{li}.{bi}"
+            blk = {"conv1": conv(sd, b + ".conv1"),
+                   "conv2": conv(sd, b + ".conv2")}
+            if b + ".downsample.0.weight" in sd:
+                blk["down_conv"] = conv(sd, b + ".downsample.0")
+            fnet[f"layer{li}_{bi}"] = blk
+
+    def attention(p):
+        return {"to_q": linear(sd, p + ".to_q"),
+                "to_kv": linear(sd, p + ".to_kv"),
+                "to_out": linear(sd, p + ".to_out")}
+
+    def mlp(p):
+        return {"fc1": linear(sd, p + ".mlp.fc1"),
+                "fc2": linear(sd, p + ".mlp.fc2")}
+
+    def attn_block(p):
+        return {"norm1": layernorm(sd, p + ".norm1"),
+                "attn": attention(p + ".attn"),
+                "norm2": layernorm(sd, p + ".norm2"), "mlp": mlp(p)}
+
+    def cross_block(p):
+        return {"norm1": layernorm(sd, p + ".norm1"),
+                "norm_context": layernorm(sd, p + ".norm_context"),
+                "cross_attn": attention(p + ".cross_attn"),
+                "norm2": layernorm(sd, p + ".norm2"), "mlp": mlp(p)}
+
+    uf = {"input_transform": linear(sd, "updateformer.input_transform"),
+          "flow_head": linear(sd, "updateformer.flow_head"),
+          "vis_conf_head": linear(sd, "updateformer.vis_conf_head")}
+    virt = _t(sd[_virtual_tracks_key(sd)])  # (1, V, 1, C) -> (V, 1, C)
+    uf["virtual_tracks"] = virt.reshape(virt.shape[-3], 1, virt.shape[-1])
+
+    for i in range(_depth(sd, "time_blocks")):
+        uf[f"time_blocks_{i}"] = attn_block(f"updateformer.time_blocks.{i}")
+    for j in range(_depth(sd, "space_virtual_blocks")):
+        uf[f"space_virtual_blocks_{j}"] = attn_block(
+            f"updateformer.space_virtual_blocks.{j}")
+        uf[f"space_point2virtual_blocks_{j}"] = cross_block(
+            f"updateformer.space_point2virtual_blocks.{j}")
+        uf[f"space_virtual2point_blocks_{j}"] = cross_block(
+            f"updateformer.space_virtual2point_blocks.{j}")
+
+    return {"params": {
+        "fnet": fnet,
+        "corr_mlp_fc1": linear(sd, "corr_mlp.fc1"),
+        "corr_mlp_fc2": linear(sd, "corr_mlp.fc2"),
+        "updateformer": uf}}
+
+
+def _depth(sd, stack):
+    """The number of blocks in ``updateformer.<stack>``."""
+    i = 0
+    while f"updateformer.{stack}.{i}.norm1.weight" in sd:
+        i += 1
+    return i
+
+
+def cotracker3_config_from_state_dict(state_dict, **overrides):
+    """A CoTracker3Config from a checkpoint's shapes: latent and hidden
+    widths, the correlation window (-> radius), the depths, the virtual
+    track count and the correlation levels (from the input transform's
+    width, given the flow embedding's C, 64 unless overridden)."""
+    from metric_depth_video_toolbox_tpu_torch.models import cotracker as ct
+    sd = state_dict
+    latent = sd["fnet.conv3.weight"].shape[0]
+    win = round(sd["corr_mlp.fc1.weight"].shape[1] ** 0.25)
+    hidden = sd["updateformer.input_transform.weight"].shape[0]
+    input_dim = sd["updateformer.input_transform.weight"].shape[1]
+    emb = sd["corr_mlp.fc2.weight"].shape[0]
+    hid_mlp = sd["corr_mlp.fc1.weight"].shape[0]
+    nv = _t(sd[_virtual_tracks_key(sd)]).reshape(-1, hidden).shape[0]
+    flow_c = overrides.pop("flow_embed_dim", 64)
+    levels = (input_dim - 2 - (2 * flow_c + 2)) // emb
+    kw = dict(latent_dim=latent, corr_radius=(win - 1) // 2,
+              corr_levels=levels, corr_mlp_hidden=hid_mlp,
+              corr_emb_dim=emb, hidden_size=hidden,
+              time_depth=_depth(sd, "time_blocks"),
+              space_depth=_depth(sd, "space_virtual_blocks"),
+              num_virtual_tracks=nv, flow_embed_dim=flow_c)
+    kw.update(overrides)
+    return ct.CoTracker3Config(**kw)
+
+
 def convert_u2net(state_dict, cfg=None):
     """Original u2net/u2netp torch checkpoint -> our models.segmentation
     U2Net params (forward equivalence proven in
@@ -1040,14 +1246,8 @@ def convert_torch_file(path, kind, cfg=None):
     JAX package's dispatch. As there, ``cfg`` None reaches the converters
     that need one (``dinov2``, ``da2``, ``da2_hf``, ``promptda_hf``,
     ``vda``, ``svd_unet``, ``svd_vae``, ``clip_vision``), which then fail on
-    ``cfg.<field>``; ``pmap_vae`` defaults to ``PMAP_VAE``. The kinds of
-    engines not ported yet raise ``NotImplementedError`` naming their
-    ROADMAP item."""
+    ``cfg.<field>``; ``pmap_vae`` defaults to ``PMAP_VAE``."""
     import torch
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"not ported yet: the {kind!r} checkpoint converter ("
-            f"ROADMAP {_LATER[kind]})")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
@@ -1068,6 +1268,8 @@ def convert_torch_file(path, kind, cfg=None):
     if kind == "unik3d":
         from metric_depth_video_toolbox_tpu_torch.models import unidepth
         return convert_unik3d(sd, cfg or unidepth.UNIDEPTH_L)
+    if kind in ("droid", "megasam"):
+        return convert_droid(sd, cfg)
     if kind in ("wan", "inspatio_world"):
         from metric_depth_video_toolbox_tpu_torch.models import wan
         return convert_wan(sd, cfg or wan.WAN_1_3B)
@@ -1075,6 +1277,8 @@ def convert_torch_file(path, kind, cfg=None):
         return convert_da2_hf(sd, cfg)
     if kind == "promptda_hf":
         return convert_promptda_hf(sd, cfg)
+    if kind == "raft":
+        return convert_raft(sd, cfg)
     if kind == "u2net":
         return convert_u2net(sd, cfg)
     if kind in ("vda", "video_depth"):
@@ -1090,15 +1294,12 @@ def convert_torch_file(path, kind, cfg=None):
         return convert_svd_vae(sd, cfg or svdm.PMAP_VAE)
     if kind == "clip_vision":
         return convert_clip_vision(sd, cfg)
+    if kind == "cotracker3":
+        return convert_cotracker3(sd, cfg)
     if kind == "depthpro_hf":
         from metric_depth_video_toolbox_tpu_torch.models import depthpro
         return convert_depthpro_hf(sd, cfg or depthpro.DEPTHPRO_L)
     raise ValueError(f"unknown checkpoint kind: {kind}")
-
-
-# the JAX package's other kinds, with the ROADMAP item that ports them
-_LATER = {"droid": "A14", "megasam": "A14", "raft": "A14",
-          "cotracker3": "A14"}
 
 
 # --- weight registry (the JAX package's, from its download_weights) ----

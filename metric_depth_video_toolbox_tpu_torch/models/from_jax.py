@@ -33,9 +33,12 @@ VideoDepthAnything, DepthAnything (with its ``ray_embed``, ``fov_fc``,
 camera ``queries`` as they are), DepthProNet, and Wan's WanDiT,
 WanVAEEncoder and
 WanVAEDecoder (RMSNorm ``scale`` and
-FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale), and
+FrameGroupNorm's ``gn.scale`` become ``weight`` like any norm scale),
 U2Net (``models.segmentation``; its batch norms' running statistics are
-buffers, which ``load_state_dict`` covers like parameters).
+buffers, which ``load_state_dict`` covers like parameters), and the
+tracking, pose and flow models: CoTracker3 (its ``virtual_tracks`` as
+they are), CoTrackerLite, RAFT (the context encoder's batch norms) and
+DroidNet.
 The tree's leaves are taken as numpy arrays (or tensors: a ``bfloat16``
 leaf of ``io.checkpoint.load_checkpoint`` is one), so this module needs no
 JAX.
@@ -48,6 +51,8 @@ configuration does not use, e.g. the learned DPT resize layers without
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -161,3 +166,24 @@ def to_flax_params(module):
                 node = node.setdefault(part, {})
             node[key] = np.ascontiguousarray(arr)
     return tree
+
+
+@torch.no_grad()
+def flax_like_init(module, generator, normal=()):
+    """Draw ``module``'s parameters from ``generator`` as a Flax ``init``
+    of the same tree would (not the same draws): LeCun-normal kernels and
+    matrices, zero biases, unit norm scales, N(0, 1) for the leaves named
+    in ``normal``; buffers (batch-norm statistics) keep their values.
+    -> ``module``"""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in normal:
+            p.normal_(0.0, 1.0, generator=generator)
+        elif leaf == "weight" and p.ndim >= 2:
+            p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()),
+                      generator=generator)
+        elif leaf == "weight":
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    return module

@@ -1,10 +1,24 @@
 """Inference-mode normalisation layers (PyTorch port of the JAX package's
-``models/norm.py`` ``EvalBatchNorm``)."""
+``models/norm.py``: ``InstanceNorm`` and ``EvalBatchNorm``)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm2d(affine=False) over the spatial axes of an (N, C, H,
+    W) tensor: ``(x - mean) * rsqrt(var + 1e-5)`` with the biased variance.
+    The statistics are computed in float32 and cast to the input's dtype,
+    the normalisation in the input's dtype (``x.mean`` / ``x.var`` of a
+    bfloat16 array in JAX accumulate in float32 and return bfloat16)."""
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        var, mu = torch.var_mean(xf, dim=(-2, -1), keepdim=True,
+                                 correction=0)
+        return (x - mu.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + 1e-5)
 
 
 class EvalBatchNorm(nn.Module):

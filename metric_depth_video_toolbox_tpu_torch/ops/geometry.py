@@ -134,6 +134,16 @@ def project_points(points, k, eps=1e-9):
     return torch.stack([u, v], dim=-1), z
 
 
+def unproject_2d_points(points_2d, depth_at, k):
+    """Pixel coordinates (..., N, 2) and each point's depth (..., N) ->
+    camera-space points (..., N, 3) through intrinsics k (..., 3, 3)."""
+    fx, fy = k[..., 0, 0, None], k[..., 1, 1, None]
+    cx, cy = k[..., 0, 2, None], k[..., 1, 2, None]
+    z = depth_at.to(torch.float32)
+    return torch.stack([(points_2d[..., 0] - cx) * z / fx,
+                        (points_2d[..., 1] - cy) * z / fy, z], dim=-1)
+
+
 def transform_points(points, transform):
     """(..., N, 3) points through (..., 4, 4) homogeneous transforms."""
     return (torch.einsum("...ij,...nj->...ni", transform[..., :3, :3],

@@ -129,7 +129,9 @@ def _parsers(command, monkeypatch):
              "depth": "video_metric_convert",
              "download-weights": "download_weights", "view": "view_depthfile",
              "split-sbs": "split_sbs_video", "inpaint": "apply_inpainting",
-             "project": "project", "upscale": "upscale_depth"}
+             "project": "project", "upscale": "upscale_depth",
+             "track": "track_points_in_video", "align": "align_3d_points",
+             "flow": "optical_flow", "slam": "sam_track_video"}
     return tuple(importlib.import_module(f"{pkg}.cli.{names[command]}")
                  .build_parser() for pkg in pkgs)
 
@@ -143,7 +145,8 @@ UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": (),
                   "engine moge": (), "engine depthpro": (),
                   "engine videoanythingmetric": (), "upscale": (),
                   "engine depthcrafter": (), "engine geometrycrafter": (),
-                  "engine mvsa": ()}
+                  "engine mvsa": (), "track": (), "align": (), "flow": (),
+                  "slam": ()}
 
 
 @pytest.mark.parametrize("command", sorted(UNPORTED_FLAGS))

@@ -4,8 +4,9 @@ must be equal, the same key paths and every leaf bit-equal (same dtype,
 same bytes). The state dicts come from the torch mirrors of the
 weight-exact tests (the upstream module layouts) and from ``transformers``
 for the HF layouts. Then ``convert_torch_file``'s dispatch (the kinds the
-port converts, the JAX package's ``cfg=None`` fault, the kinds that wait
-for ROADMAP A13 / A14), the weight registry and ``download_weights``
+port converts, the tracking, pose and flow kinds loaded into the port's
+models, the JAX package's ``cfg=None`` fault), the weight registry and
+``download_weights``
 through its test seams (nothing here reaches the network), and the
 weight-exact decode held against the upstream graphs: the HF
 Depth-Anything-V2 model and the Video-Depth-Anything head mirror, within
@@ -19,18 +20,23 @@ import pytest
 import torch
 
 from metric_depth_video_toolbox_tpu.models import convert as jconvert
+from metric_depth_video_toolbox_tpu.models import cotracker as jct
 from metric_depth_video_toolbox_tpu.models import da3 as jda3
 from metric_depth_video_toolbox_tpu.models import dpt as jdpt
+from metric_depth_video_toolbox_tpu.models import raft as jraft
 from metric_depth_video_toolbox_tpu.models import svd as jsvd
 from metric_depth_video_toolbox_tpu.models import video_depth as jvd
 from metric_depth_video_toolbox_tpu.models import vit as jvit
 from metric_depth_video_toolbox_tpu.models import wan as jwan
 from metric_depth_video_toolbox_tpu_torch.models import clip as tclip
 from metric_depth_video_toolbox_tpu_torch.models import convert as tconvert
+from metric_depth_video_toolbox_tpu_torch.models import cotracker as tct
 from metric_depth_video_toolbox_tpu_torch.models import da3 as tda3
 from metric_depth_video_toolbox_tpu_torch.models import depth_anything as tda
 from metric_depth_video_toolbox_tpu_torch.models import dpt as tdpt
+from metric_depth_video_toolbox_tpu_torch.models import droid as tdroid
 from metric_depth_video_toolbox_tpu_torch.models import from_jax
+from metric_depth_video_toolbox_tpu_torch.models import raft as traft
 from metric_depth_video_toolbox_tpu_torch.models import segmentation as tseg
 from metric_depth_video_toolbox_tpu_torch.models import svd as tsvd
 from metric_depth_video_toolbox_tpu_torch.models import video_depth as tvd
@@ -302,14 +308,75 @@ def test_convert_torch_file_without_cfg_fails_like_jax(tmp_path, kind,
                                       f"'{field}'")
 
 
-@pytest.mark.parametrize("kind", sorted(tconvert._LATER))
-def test_later_kinds_name_their_roadmap_item(tmp_path, kind):
-    """The JAX package's other kinds: the port raises naming A14 (tracking,
-    pose, flow), before reading the file."""
-    item = tconvert._LATER[kind]
-    assert item == "A14"
-    with pytest.raises(NotImplementedError, match=item):
-        tconvert.convert_torch_file(str(tmp_path / "absent.pth"), kind)
+def raft_sd():
+    """torchvision ``raft_large`` layout at RAFT_TINY widths, batch-norm
+    statistics drawn away from 0 / 1."""
+    from test_weight_exact_raft import TRaft
+    sd = numpy_sd(TRaft(jraft.RAFT_TINY), 11)
+    rng = np.random.default_rng(11)
+    for k in sd:
+        if k.endswith("running_var"):
+            sd[k] = rng.uniform(0.5, 1.5, sd[k].shape).astype(np.float32)
+    return sd
+
+
+def droid_sd(prefix="module."):
+    """DROID-SLAM layout at DROID_TINY widths (``module.`` prefixed, as
+    Mega-SAM's DataParallel file), with an extra tensor of Mega-SAM's that
+    the converter ignores."""
+    from test_weight_exact_droid import TDroid
+    torch.manual_seed(12)
+    sd = {prefix + k: v.detach().numpy() for k, v in
+          TDroid().state_keys().items()}
+    sd[prefix + "update.motion_head.weight"] = np.ones((2, 3), np.float32)
+    return sd
+
+
+def cotracker3_sd():
+    """cotracker3_offline layout at COTRACKER3_TINY widths with the
+    upstream flow embedding (C = 64), its ``virual_tracks`` spelling."""
+    from test_weight_exact_cotracker import TCoTracker3
+    torch.manual_seed(13)
+    cfg = dataclasses.replace(jct.COTRACKER3_TINY, flow_embed_dim=64)
+    return {k: v.detach().numpy() for k, v in TCoTracker3(cfg)
+            .state_dict().items()}
+
+
+# the converters of the tracking, pose and flow models: upstream state
+# dict maker, the torch.save'd file's kind, the port model built from the
+# converted tree
+A14_KINDS = {
+    "droid": (lambda: droid_sd(""), lambda: tdroid.DroidNet(
+        tdroid.DROID_TINY)),
+    "megasam": (droid_sd, lambda: tdroid.DroidNet(tdroid.DROID_TINY)),
+    "raft": (raft_sd, lambda: traft.RAFT(traft.RAFT_TINY)),
+    "cotracker3": (cotracker3_sd, None),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(A14_KINDS))
+def test_a14_kinds_convert_like_jax(tmp_path, kind):
+    """DROID (plain and Mega-SAM's prefixed file), torchvision RAFT and
+    CoTracker3 through both packages' ``convert_torch_file``: equal trees,
+    leaf for leaf; the tree loads strictly into the port's model (for
+    CoTracker3, at the configuration read from the file's shapes, equal to
+    the JAX package's)."""
+    make, model = A14_KINDS[kind]
+    sd = make()
+    path = str(tmp_path / "upstream.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    got = tconvert.convert_torch_file(path, kind)
+    assert_trees_equal(got, jconvert.convert_torch_file(path, kind))
+    if kind == "cotracker3":
+        tcfg = tconvert.cotracker3_config_from_state_dict(sd)
+        jcfg = jconvert.cotracker3_config_from_state_dict(sd)
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+        assert tcfg.flow_embed_dim == 64 and tcfg.corr_levels == 2
+        over = tconvert.cotracker3_config_from_state_dict(
+            sd, iters=3, model_resolution=(32, 48))
+        assert (over.iters, over.model_resolution) == (3, (32, 48))
+        model = lambda: tct.CoTracker3(tcfg)  # noqa: E731
+    from_jax.load_flax_params(model(), got)
 
 
 def test_unknown_kind_and_registry_match_jax(tmp_path):
@@ -322,10 +389,10 @@ def test_unknown_kind_and_registry_match_jax(tmp_path):
     for name in tconvert.WEIGHT_REGISTRY:
         assert tconvert.weight_sources(name) == jconvert.weight_sources(name)
     kinds = {e["kind"] for e in tconvert.WEIGHT_REGISTRY.values()}
-    assert kinds - set(tconvert._LATER) == {
+    assert kinds == {
         "video_depth", "dinov2", "da3", "wan", "svd_unet", "m2svid_sgm",
         "u2net", "clip_vision", "moge", "unidepth", "unik3d", "depthpro_hf",
-        "pmap_vae"}
+        "pmap_vae", "raft", "cotracker3", "droid"}
 
 
 # --------------------------------------------------- download_weights ----

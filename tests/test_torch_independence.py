@@ -127,10 +127,18 @@ with tempfile.TemporaryDirectory() as tmp:
     from_jax.load_flax_params(back, convert.load_checkpoint(ckpt))
     assert all(torch.equal(a, b) for a, b in zip(
         dit.state_dict().values(), back.state_dict().values()))
-try:
-    convert.convert_torch_file("raft.pth", "raft")
-except NotImplementedError as e:
-    assert "A14" in str(e)
+with tempfile.TemporaryDirectory() as tmp:
+    # a seeded torchvision-layout RAFT state dict through the converter
+    from chip_smoke import raft_shapes, upstream_state_dict
+    from metric_depth_video_toolbox_tpu_torch.models import raft
+    pth = os.path.join(tmp, "raft.pth")
+    torch.save(upstream_state_dict(raft_shapes(raft.RAFT_TINY),
+                                   torch.Generator().manual_seed(0), "cpu"),
+               pth)
+    flow_net = from_jax.load_flax_params(
+        raft.RAFT(raft.RAFT_TINY), convert.convert_torch_file(pth, "raft"))
+    frame = torch.zeros((1, 16, 24, 3), dtype=torch.uint8)
+    assert torch.isfinite(flow_net(frame, frame)).all()
 from metric_depth_video_toolbox_tpu_torch.models import moge, unidepth
 from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
 clip = np.zeros((2, 32, 48, 3), np.uint8)
@@ -159,6 +167,55 @@ print("OK")
 def test_imports_and_runs_with_jax_and_cv2_blocked():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", BLOCKED], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
+TRACKING = """
+import sys
+for name in ("jax", "jaxlib", "flax", "msgpack",
+             "metric_depth_video_toolbox_tpu"):
+    sys.modules[name] = None
+import json, os, tempfile
+import numpy as np, torch
+from metric_depth_video_toolbox_tpu_torch.cli import main
+from metric_depth_video_toolbox_tpu_torch.io import video as vio
+rng = np.random.default_rng(0)
+tex = np.kron(rng.integers(0, 200, (16, 30, 3), dtype=np.uint8),
+              np.ones((4, 4, 1), np.uint8))
+frames = np.stack([tex[:64, 2 * i:2 * i + 64] for i in range(6)])
+depth = np.broadcast_to(np.linspace(2, 6, 64, dtype=np.float32),
+                        (6, 64, 64))
+with tempfile.TemporaryDirectory() as tmp:
+    clip = os.path.join(tmp, "clip.mkv")
+    vio.save_rgb_video(frames, clip, 24)
+    dv = clip + "_depth.mkv"
+    vio.save_depth_video(depth, dv, 24, 100.0)
+    main.main(["track", "--color_video", clip, "--grid", "6",
+               "--clip_len", "6"])
+    main.main(["align", "--depth_video", dv, "--track_file",
+               clip + "_tracking.json", "--xfov", "60", "--use_madpose"])
+    main.main(["flow", "--color_video", clip])
+    main.main(["slam", "--color_video", clip, "--depth_video", dv,
+               "--xfov", "60", "--ba_iters", "2"])
+    assert len(json.load(open(clip + "_tracking.json"))) == 6
+    tr = np.asarray(json.load(open(dv + "_transformations.json")))
+    assert tr.shape == (6, 4, 4) and np.isfinite(tr).all()
+    assert vio.read_video_frames(clip + "_flow.mkv")[0].shape == (6, 64, 64,
+                                                                    3)
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("OK")
+"""
+
+
+def test_tracking_commands_run_with_jax_blocked():
+    """``track``, ``align --use_madpose``, ``flow`` (RAFT_LARGE, seeded)
+    and ``slam`` file to file through ``mdvt-torch`` on a tiny clip, on the
+    CPU, with the JAX package, JAX, Flax and msgpack unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), MDVT_PLATFORM="cpu")
+    res = subprocess.run([sys.executable, "-c", TRACKING], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
