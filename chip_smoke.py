@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--baseline-csrc DIR]
-                          [--only single_frame|depth_engines|tracking]
+                          [--only single_frame|depth_engines|tracking|
+                                  export_view]
 
 Run from the repository root on a machine with a CUDA card. Phases, each
 of which fails the run on error:
@@ -81,9 +82,10 @@ of which fails the run on error:
   7b. svd_infill the SVD-class infill through ``mdvt-torch infill`` on the
                 phase-4 SBS frames and mask as files: (a) ``diffusion`` at
                 its defaults (DIFFUSION_SVD, 768x1024, chunks 25/6, the
-                halo blend), (b) ``m2svid`` (512x512, the phase-3 clip as
-                mono conditioning) on 25 frames, (c) ``--model_scale svd`` (the
-                StereoCrafter graph, SVDConfig, bf16) on 13 frames; each
+                halo blend) on 26 frames, (b) ``m2svid`` (512x512, the
+                phase-3 clip as mono conditioning) on 13 frames, (c)
+                ``--model_scale svd`` (the StereoCrafter graph, SVDConfig,
+                bf16) on 13 frames; each
                 with its parameter count, wall time, SBS frames/s, peak
                 device memory, one chunk's device busy share and top
                 device operations; counts zeroed before each, read after
@@ -127,7 +129,7 @@ of which fails the run on error:
                 under torch.profiler: device time, top kernels.
  11. stereo_paths the general stereo renderer and the novel-view render
                 (after the earlier phases' models are freed), file to file
-                through cli/main.py on phase 3's first 16 frames (depth
+                through cli/main.py on phase 3's first 12 frames (depth
                 mapped onto 1..30 m, as RGB-encoded FFV1, the colour clip;
                 the seeded weights' range is a few cm) under a seeded smooth
                 camera path: (a) ``stereo --transformation_file
@@ -174,15 +176,16 @@ of which fails the run on error:
                 to ``depth --profile DIR`` (a trace file must appear); (e)
                 ``split-sbs`` on phase 4's SBS frames (halves bit-equal) and
                 ``inpaint`` on the clip; (f) the movie's two-pass step 2
-                with the moge stand-in on a 40-frame scene (one locked FOV).
+                with the moge stand-in on a 16-frame scene (one locked FOV).
  13. depth_engines the diffusion and MVS depth engines, ``upscale`` and
                 ``--quantize int8`` (after the earlier phases' models are
                 freed), file to file through cli/main.py on phase 3's 1080p
                 clip: (a) ``engine depthcrafter --model svd`` on phase 3's
                 depth at the defaults (window 110, overlap 25, 448 x 768, 5
-                steps) on 40 frames, (a') with ``--use_depth_prompting
-                --window 25 --overlap 10``, (b) ``engine geometrycrafter
-                --model svd`` with the MoGe stand-in's prior and
+                steps) on 16 frames, (a') with ``--use_depth_prompting
+                --window 25 --overlap 10`` on 30 (two windows), (b) ``engine
+                geometrycrafter --model svd`` on 16 with the MoGe
+                stand-in's prior and
                 ``--pmap_vae_checkpoint`` (PMAP_VAE from a seeded
                 upstream-layout state dict, read back bit for bit), (c)
                 ``engine mvsa`` (MVSConfig, resize_w 1024, window 7) on 16
@@ -193,7 +196,7 @@ of which fails the run on error:
                 beside ``depth`` on 40 frames (rates, the int8 GEMM's
                 calls, the depth difference within DE_QUANT_MAX /
                 DE_QUANT_MEAN), (f) the movie's step 2 with depthcrafter
-                and geometrycrafter on one 40-frame scene; each with its
+                and geometrycrafter on one 16-frame scene; each with its
                 wall, frames/s, peak memory and one window's or batch's
                 device time, busy share and top operations, counts zeroed
                 before and read after (no launch); then each engine at its
@@ -219,6 +222,29 @@ of which fails the run on error:
                 of the learned front-end and the bundle adjustment at
                 their tiny presets in float32 on the card and on the CPU
                 (the CPU tests' tolerances).
+ 15. export_view export, analysis, the interactive viewer and the GUI
+                (after the earlier phases' models are freed) on phase 3's
+                40-frame 1080p clip (depth on 1-30 m) with phase 14's LK
+                tracks and ``slam`` poses: (a) ``export`` through
+                cli/main.py with ``--triangulate --save_rescaled_depth``,
+                the same with ``--global_align``, ``--save_grayscale`` and
+                ``--bit16`` (frame 0 equal to the codec's decode),
+                ``--save_ply 20 --save_obj 40 --remove_edges`` (the PLY and
+                OBJ writes timed; the OBJ's faces counted against the edge
+                cull on the card) and ``--save_normals --merge_close_points
+                --show_scene_point_clouds --save_alembic`` (unit normals, 72
+                turntable frames, the camera track); (b) ``analyse-depth``
+                and ``analyse-tracking``; (c) the viewer's server on the
+                card, 8 frames and the background held against the same
+                ``FrameSource`` on the CPU (the tests' rule), frames served
+                per second; (d) the GUI on a one-scene project of a
+                12-frame 1080p clip: status, ``/api/run`` to ``[run
+                finished]`` (counts zeroed before, read after: the
+                disparity sweep twice per stereo batch of 8, nothing
+                else), a JPEG of the SBS file, the final movie; (e)
+                ``io/native`` (the C++ library built with ``make`` where
+                there is a toolchain) against its numpy path. No launch on
+                (a)-(c) and (e).
 
 It then prints a JSON line of the kernels' launches, times, bounds,
 library times (and kernel / library ratios), registers and spilled bytes,
@@ -1462,7 +1488,10 @@ def movie_diffusion_resume(clip, out_dir, final, n, dev, zero_counts,
             "steps_s": dict(movie.STEP_SECONDS)}
 
 
-M2SVID_FRAMES = 25             # svd_infill (b): one 25-frame chunk per eye
+SVD_PROD_FRAMES = 26           # svd_infill (a): two chunks of 25 per eye,
+#                                overlapping by 6 (40 until PR 14)
+M2SVID_FRAMES = 13             # svd_infill (b): one chunk per eye (25
+#                                frames until PR 14)
 SVD_FRAMES = 13                # svd_infill (c): one 13-frame chunk per eye
 
 
@@ -1528,9 +1557,10 @@ def phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts, expect_counts,
     """``mdvt-torch infill`` through cli/main.py with the SVD-class engines
     on the phase-4 SBS frames and infill mask, as files: (a) ``diffusion``
     at its defaults (DIFFUSION_SVD, 768 x 1024, chunks of 25 overlapping by
-    6, the left eye mirrored, the halo blend on); (b) ``m2svid`` at 512 x
+    6, the left eye mirrored, the halo blend on) on the first 26 frames
+    (two chunks per eye); (b) ``m2svid`` at 512 x
     512 with the phase-3 clip as the mono conditioning, no halo, on the
-    first 25 frames; (c)
+    first 13 frames; (c)
     ``--model_scale svd`` (SVDConfig and SVDVAEConfig, bfloat16) on the
     first 13 frames. Counts zeroed before each run and read after: no
     hand-written kernel runs (attention is SDPA). -> {run: numbers}"""
@@ -1551,7 +1581,8 @@ def phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts, expect_counts,
     from metric_depth_video_toolbox_tpu_torch.pipeline import \
         infill_diffusion as idf
 
-    n = sbs.shape[0]
+    n = SVD_PROD_FRAMES
+    sbs, sbs_mask, frames = sbs[:n], sbs_mask[:n], frames[:n]
     hole = np.any(sbs_mask != 0, axis=-1)
     reach = halo_reach(sbs_mask, dev)
     runs = (
@@ -2846,7 +2877,8 @@ def phase_checkpoints(frames, sbs, sbs_mask, da3_frames, depth_fps, da3_fps,
 
 # ------------------------------------------------ phase: stereo_paths ----
 
-SP_FRAMES = 16          # the stereo_paths clip: phase 3's first 16 frames
+SP_FRAMES = 12          # the stereo_paths clip: phase 3's first 12 frames
+#                         (16 until PR 14)
 SP_VR_FRAMES = 8        # (d) VR180 and (e) Touchly0 at the 1920 eye size
 SP_BG_FRAMES = 10       # (f) the save runs to the first downsample
 SP_BATCH = 16           # the stereo CLI's default batch
@@ -2889,7 +2921,7 @@ def film_depth(metric, near=SP_NEAR, far=SP_FAR):
 def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
                        card):
     """The general stereo renderer and the novel-view render, file to file
-    through cli/main.py on a 16-frame 1080p clip (phase 3's depth mapped
+    through cli/main.py on a 12-frame 1080p clip (phase 3's depth mapped
     onto 1..30 m, RGB-encoded FFV1, and its colour clip) with a seeded
     camera path: (a)
     ``stereo --transformation_file --infill_mask`` (forward warp, splat
@@ -3138,7 +3170,8 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
     gen4 = torch.Generator(device=dev).manual_seed(4)
     d4, c4 = synth_scene(SP_BATCH, gen4, dev, h4, w4)
     args4 = stereo_inputs(codec.encode_depth_frame(d4, 100.0), c4)
-    args4 = args4[:3] + (torch.as_tensor(tfs[:SP_BATCH], device=dev),) \
+    args4 = args4[:3] + (torch.as_tensor(camera_path(SP_BATCH),
+                                         device=dev),) \
         + args4[4:]
     del d4, c4
     cfg4 = stereo.StereoConfig(width=w4, height=h4, make_infill_mask=True,
@@ -3197,7 +3230,7 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
 SF_FRAMES = 16          # phase 3's first 16 frames: one batch of 16
 SF_DEPTHPRO_FRAMES = 4  # (a) DepthPro-L: one micro-batch (its file's load
                         # and the codecs hold its wall, not the frames)
-SF_MOVIE_FRAMES = 40    # (f): the movie's step 2 on one 40-frame scene
+SF_MOVIE_FRAMES = 16    # (f): the movie's step 2 on one scene (40 until PR 14)
 SF_SEED = 12
 # MoGe-L through B4 against the same weights through SDPA, both bfloat16:
 # largest and mean absolute difference of the raw point map (before the
@@ -3287,7 +3320,7 @@ def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
     videoanythingmetric`` bit-equal to ``depth --profile DIR`` with the
     same flags, and a trace in DIR; (e) ``split-sbs`` on phase 4's SBS
     frames and ``inpaint`` on the clip; (f) the movie's two-pass step 2
-    with ``engine="moge"`` (the stand-in) on one 40-frame scene. -> numbers
+    with ``engine="moge"`` (the stand-in) on one 16-frame scene. -> numbers
     """
     try:
         import cv2
@@ -3627,7 +3660,7 @@ def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
                 f"frames (a {int(hole.sum())}-pixel overlay, 96 iterations):"
                 f" {wall_i:.3f} s")
 
-            # (f) the movie's two-pass step 2 on one 40-frame scene
+            # (f) the movie's two-pass step 2 on one scene
             m = SF_MOVIE_FRAMES
             scene = os.path.join(tmp, "movie", "scene_1.mkv")
             vio.save_rgb_video(frames[:m], scene, 24)
@@ -3663,7 +3696,11 @@ def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
 
 # ----------------------------------------------- phase: depth_engines ----
 
-DE_FRAMES = 40          # phase 3's clip: (a), (b), (e), (f)
+DE_FRAMES = 40          # phase 3's clip: (e) (two VDA windows of 32)
+# (a), (b), (f): one window (the diffusion window of 110 is padded, so the
+# device's work is the same; 40 frames until PR 14)
+DE_DIFF_FRAMES = 16
+DE_PROMPT_FRAMES = 30   # (a'): two windows of 25 overlapping 10 (40 before)
 DE_SHORT = 16           # phase 3's first 16 frames: (c), (d)
 DE_SEED = 13
 DE_PROMPT_HW = (144, 256)       # (d): the low-resolution depth prompt
@@ -3939,21 +3976,22 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
     through cli/main.py on phase 3's 1080p clip, seeded weights, no kernel
     of the repo on any path: (a) ``engine depthcrafter --model svd`` with
     phase 3's depth as --depth_video at the defaults (window 110, overlap
-    25, 448 x 768, 5 steps) on 40 frames; (a') the same with
-    ``--use_depth_prompting --window 25 --overlap 10`` (two windows); (b)
+    25, 448 x 768, 5 steps) on 16 frames; (a') the same with
+    ``--use_depth_prompting --window 25 --overlap 10`` on 30 frames (two
+    windows); (b)
     ``engine geometrycrafter --model svd`` with a MoGe prior (vits) and
     ``--pmap_vae_checkpoint`` (PMAP_VAE converted from a seeded
     upstream-layout state dict, read back bit for bit), window 110, 384 x
-    640, 40 frames; (c) ``engine mvsa --xfov 60`` on phase 11's camera
+    640, 16 frames; (c) ``engine mvsa --xfov 60`` on phase 11's camera
     path, MVSConfig at resize_w 1024, window 7, 16 frames, plain and
     ``--rescale_to_cost_volume``; (d) ``upscale``, PromptDA at ViT-L from a
     converted promptda_hf file, a 256 x 144 prompt, 16 frames in batches of
     4; (e) ``depth --quantize int8`` beside ``depth`` (VDA-S, 518, 40
     frames), their relative disparity's difference gated; (f) the movie's
-    step 2 with depthcrafter, then geometrycrafter, on one 40-frame scene.
+    step 2 with depthcrafter, then geometrycrafter, on one 16-frame scene.
     Each with its wall, frames/s, peak memory and one window's or batch's
     device time, busy share and top device operations ((a), (b) and (f)
-    traced as they run: a 40-frame clip is one 110-frame window; (a')
+    traced as they run: a 16-frame clip is one 110-frame window; (a')
     untraced, for the script's time). Then
     the card-vs-CPU checks of phase_reference_depth_engines. -> numbers"""
     import gc
@@ -3976,7 +4014,7 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
     from metric_depth_video_toolbox_tpu_torch.pipeline import movie
 
     t_phase = time.perf_counter()
-    n, m = DE_FRAMES, DE_SHORT
+    n, m, nd = DE_FRAMES, DE_SHORT, DE_DIFF_FRAMES
     gen = torch.Generator(device=dev).manual_seed(DE_SEED)
     res = {}
     P = "depth_engines"
@@ -3994,7 +4032,7 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
 
     def command(tag, argv, n_frames, profiled=False):
         """The command through cli/main.py; ``profiled``: the run itself
-        under torch.profiler, its wall the traced run's (a 40-frame clip
+        under torch.profiler, its wall the traced run's (a 16-frame clip
         is one window of 110: the run's device time is the window's)."""
         built.clear()
         zero_counts()
@@ -4032,7 +4070,8 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
             # (a) DepthCrafter, the SVD graph, at the defaults
             r = command("(a) engine depthcrafter --model svd", [
                 "engine", "depthcrafter", "--color_video", clip,
-                "--depth_video", ref, "--model", "svd"], n, profiled=True)
+                "--depth_video", ref, "--model", "svd", "--max_frames",
+                str(nd)], nd, profiled=True)
             eng = built[0]
             if (not hasattr(eng.cfg, "cross_attention_dim")
                     or eng.work_hw != depthcrafter_work_hw(H, W)
@@ -4042,7 +4081,7 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
             r["params_m"] = sum(p.numel() for p in eng.model.parameters()
                                 ) / 1e6
             r["depth_m"] = depth_range(check_depth_file(
-                "(a)", out, n, phase=P))
+                "(a)", out, nd, phase=P))
             os.remove(out)
             res["depthcrafter"] = r
             log(f"[{P}] ({card}) (a) {r['params_m']:.1f} M parameters, "
@@ -4054,10 +4093,11 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
                             "engine", "depthcrafter", "--color_video", clip,
                             "--depth_video", ref, "--model", "svd",
                             "--use_depth_prompting", "--window", "25",
-                            "--overlap", "10"], n)
+                            "--overlap", "10", "--max_frames",
+                            str(DE_PROMPT_FRAMES)], DE_PROMPT_FRAMES)
             eng = built[0]
             r["depth_m"] = depth_range(check_depth_file(
-                "(a')", out, n, phase=P))
+                "(a')", out, DE_PROMPT_FRAMES, phase=P))
             os.remove(out)
             res["depthcrafter_prompted"] = r
             del eng
@@ -4083,7 +4123,8 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
                         "--pmap_vae_checkpoint", [
                             "engine", "geometrycrafter", "--color_video",
                             clip, "--model", "svd", "--pmap_vae_checkpoint",
-                            ckpt], n, profiled=True)
+                            ckpt, "--max_frames", str(nd)], nd,
+                        profiled=True)
             eng = built[0]
             if (eng.pmap_enc is None or eng.work_hw != DE_GC_WORK
                     or not hasattr(eng.cfg, "cross_attention_dim")):
@@ -4095,7 +4136,7 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
                      pmap_vae_convert_write_read_s=conv_s,
                      pmap_vae_leaves=leaves,
                      depth_m=depth_range(check_depth_file(
-                         "(b)", out, n, phase=P)))
+                         "(b)", out, nd, phase=P)))
             os.remove(out)
             log(f"[{P}] ({card}) (b) point-map VAE: "
                 f"{r['pmap_vae_params_m']:.1f} M parameters, "
@@ -4258,7 +4299,7 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
             # (f) the movie's step 2, depthcrafter then geometrycrafter
             for engine in ("depthcrafter", "geometrycrafter"):
                 scene = os.path.join(tmp, engine, "scene_1.mkv")
-                vio.save_rgb_video(frames[:n], scene, 24)
+                vio.save_rgb_video(frames[:nd], scene, 24)
                 scenes = [{"Scene Number": "1", "finished": False,
                            "scene_video_file": scene,
                            "depth_video_file": scene + "_depth.mkv"}]
@@ -4275,17 +4316,17 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
                 expect_counts(f"{P} (f) movie step 2 {engine}", {},
                               "no kernel of the repo on this path")
                 dr = depth_range(check_depth_file(
-                    f"(f) {engine}", scene + "_depth.mkv", n, phase=P))
+                    f"(f) {engine}", scene + "_depth.mkv", nd, phase=P))
                 if os.path.exists(scene + "_ref_depth.mkv") != (
                         engine == "depthcrafter"):
                     raise RuntimeError(f"{P} (f) {engine}: reference pass")
-                r = {"wall_s": wall, "fps": n / wall, "depth_m": dr,
+                r = {"wall_s": wall, "fps": nd / wall, "depth_m": dr,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                      "profile": prof}
                 res[f"movie_{engine}"] = r
                 log(f"[{P}] ({card}) (f) movie step 2 {engine} "
-                    f"(DIFFUSION_TINY, the JAX package's default), {n} "
-                    f"frames: {wall:.3f} s traced, {n / wall:.3f} frames/s, "
+                    f"(DIFFUSION_TINY, the JAX package's default), {nd} "
+                    f"frames: {wall:.3f} s traced, {nd / wall:.3f} frames/s, "
                     f"peak {r['peak_gib']:.2f} GiB")
                 built.clear()
     finally:
@@ -4687,7 +4728,8 @@ def phase_reference_tracking(dev, card):
     return out
 
 
-def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card):
+def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card,
+                   keep=None):
     """Tracking, pose and flow file to file through cli/main.py on phase
     3's 1080p clip (its depth mapped onto 1-30 m, as phase 11's), seeded
     weights, no kernel of the repo on any path: (a) ``track`` at the
@@ -4700,7 +4742,10 @@ def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card):
     the global bundle adjustment on). Each with its wall, frames/s, peak
     memory and one clip's, chunk's, pair's, batch's or window's device
     time, busy share and top operations; counts zeroed before and read
-    after each run. Then phase_reference_tracking. -> numbers"""
+    after each run. Then phase_reference_tracking. ``keep``: a directory
+    that receives the clip and its depth (``clip.mkv``,
+    ``clip.mkv_depth.mkv``), (a)'s LK tracks (``tracking.json``) and (d)'s
+    LK poses (``transformations.json``) for phase 15. -> numbers"""
     import gc
     import shutil
 
@@ -4756,6 +4801,9 @@ def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card):
         depth = film_depth(metric[:n])
         depth_file = clip + "_depth.mkv"
         vio.save_depth_video(depth, depth_file, 24, 100.0)
+        if keep is not None:
+            for path in (clip, depth_file):
+                shutil.copy(path, keep)
         frames_dev = torch.from_numpy(np.ascontiguousarray(frames[:n])).to(
             dev)
 
@@ -4764,6 +4812,8 @@ def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card):
                     ["track", "--color_video", clip], n)
         lk_tracks = os.path.join(tmp, "lk_tracking.json")
         shutil.copy(clip + "_tracking.json", lk_tracks)
+        if keep is not None:
+            shutil.copy(lk_tracks, os.path.join(keep, "tracking.json"))
         r["frames_with_tracks"], r["tracks"] = check_tracks(
             "(a) lk", lk_tracks, n)
         pts, ok = trk.generate_grid_queries(frames_dev[0], grid=36)
@@ -4864,6 +4914,9 @@ def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card):
                      depth_file, "--xfov", "60"], n)
         r["last_camera_m"] = check_poses(
             "(d) slam", depth_file + "_transformations.json", n)
+        if keep is not None:
+            shutil.copy(depth_file + "_transformations.json",
+                        os.path.join(keep, "transformations.json"))
         dense, _ = sidecar.tracking_to_dense(sidecar.load_tracking(
             clip + "_tracking.json"), max_tracks=512)
         init = sidecar.load_transformations(
@@ -4921,6 +4974,423 @@ def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card):
     return res
 
 
+# --- phase 15: export, analysis, the viewer and the GUI ----------------------
+
+EV_FRAMES = 40          # phase 3's clip, as phase 14's
+EV_VIEW_FRAMES = 8      # (c): the frames fetched from the viewer
+EV_GUI_FRAMES = 12      # (d): the GUI project's one scene
+EV_TURNTABLE = (72, 480, 640)   # --show_scene_point_clouds: frames, h, w
+
+
+def _get(port, path, data=None):
+    """An HTTP request to a server of this process -> (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    body = json.dumps(data).encode() if data is not None else None
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    data=body, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def same_viewer_frames(tag, card_blob, cpu_blob):
+    """The tests' rule (tests/test_torch_viewer.py): header, validity marks
+    and colors exact; positions within one u16 code; bbox and frustum
+    within 1e-5 relative. -> (valid share, largest code difference)"""
+    import numpy as np
+
+    from metric_depth_video_toolbox_tpu_torch.pipeline import viewer
+
+    (h1, b1, q1, c1, f1), (h2, b2, q2, c2, f2) = (
+        viewer.unpack_frame(card_blob), viewer.unpack_frame(cpu_blob))
+    v1, v2 = q1[..., 2] != viewer.INVALID, q2[..., 2] != viewer.INVALID
+    code = (int(np.abs(q1[v1].astype(np.int64) - q2[v2]).max())
+            if v1.any() and (v1 == v2).all() else 0)
+    if (h1 != h2 or not (v1 == v2).all() or not np.array_equal(c1, c2)
+            or not np.array_equal(q1[~v1], q2[~v2]) or code > 1
+            or not np.allclose(b1, b2, rtol=1e-5, atol=1e-6)
+            or not np.allclose(f1, f2, rtol=1e-5, atol=1e-6)):
+        raise RuntimeError(f"export_view (c) {tag}: the card's frame and the "
+                           f"CPU's differ (headers {h1} / {h2}, validity "
+                           f"equal {(v1 == v2).all()}, colors equal "
+                           f"{np.array_equal(c1, c2)}, codes {code})")
+    return float(v1.mean()), code
+
+
+def phase_export_view(metric, frames, dev, zero_counts, expect_counts, card,
+                      inputs=None):
+    """Export, analysis, the interactive viewer and the GUI (ROADMAP A15)
+    through cli/main.py and their servers on phase 3's 40-frame 1080p clip
+    (its depth mapped onto 1-30 m, as phases 11 and 14), with phase 14's
+    LK tracks and ``slam`` poses (``inputs``: phase 14's ``keep``
+    directory; without it the clip and its depth are written and ``track``
+    and ``slam`` run here first): (a) ``export`` with ``--triangulate
+    --save_rescaled_depth``, the same with ``--global_align``,
+    ``--save_grayscale``, ``--bit16``, ``--save_ply 20 --save_obj 40
+    --remove_edges`` (one OBJ) and ``--save_normals --merge_close_points
+    --show_scene_point_clouds --save_alembic``; (b) ``analyse-depth`` and
+    ``analyse-tracking``; (c) the viewer's server on the card, 8 frames and
+    the background (the triangulated cloud) held against the same
+    ``FrameSource`` on the CPU by the tests' rule; (d) the GUI on a
+    one-scene project of a 12-frame 1080p clip: its status and a frame,
+    then ``/api/run`` (the movie at the project's defaults, stereo batches
+    of 8) to ``[run finished]``, the scene's SBS file and the final movie;
+    (e) ``io/native`` against its numpy path. Counts zeroed before each
+    run and read after: no launch on (a)-(c) and (e), the disparity sweep
+    twice per stereo batch on (d). -> numbers"""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.cli import main as cli
+    from metric_depth_video_toolbox_tpu_torch.io import mkv, native
+    from metric_depth_video_toolbox_tpu_torch.io import pointcloud as pcio
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    from metric_depth_video_toolbox_tpu_torch.ops import codec
+    from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
+    from metric_depth_video_toolbox_tpu_torch.ops import rasterize
+    from metric_depth_video_toolbox_tpu_torch.pipeline import gui, project
+    from metric_depth_video_toolbox_tpu_torch.pipeline import viewer
+
+    t_phase = time.perf_counter()
+    n = EV_FRAMES
+    res = {}
+    P = "export_view"
+    none = "no kernel of the repo on this path"
+    # the first use builds native/libmdvt_native.so where make and g++ exist
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+
+    def command(tag, argv):
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"{P} {tag}", {}, none)
+        r = {"wall_s": wall,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"[{P}] ({card}) {tag}: {wall:.3f} s, peak {r['peak_gib']:.2f} "
+            f"GiB (the phase at {time.perf_counter() - t_phase:.1f} s)")
+        return r
+
+    def read_all(path):
+        with vio.VideoReader(path) as r:
+            return r.read_all()
+
+    def cloud(tag, path, normals=False):
+        pts, cols, nrm = pcio.read_ply(path, return_normals=True)
+        if (pts.ndim != 2 or pts.shape[0] < 20
+                or not np.isfinite(pts).all()
+                or (normals and (nrm is None or not np.allclose(
+                    np.linalg.norm(nrm, axis=1), 1.0, atol=1e-4)))):
+            raise RuntimeError(f"{P} {tag}: {path}: points {pts.shape}, "
+                               f"normals {None if nrm is None else nrm.shape}")
+        return pts, cols
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.mkv")
+        depth_file = clip + "_depth.mkv"
+        tracks = os.path.join(tmp, "tracking.json")
+        poses = os.path.join(tmp, "transformations.json")
+        if inputs is None:
+            vio.save_rgb_video(frames[:n], clip, 24)
+            vio.save_depth_video(film_depth(metric[:n]), depth_file, 24,
+                                 100.0)
+            command("track (lk, the defaults)", ["track", "--color_video",
+                                                 clip])
+            shutil.copy(clip + "_tracking.json", tracks)
+            command("slam (lk)", ["slam", "--color_video", clip,
+                                  "--depth_video", depth_file, "--xfov",
+                                  "60"])
+            shutil.move(depth_file + "_transformations.json", poses)
+        else:       # phase 14's clip, depth, tracks and poses
+            for path in (clip, depth_file, tracks, poses):
+                shutil.copy(os.path.join(inputs, os.path.basename(path)),
+                            path)
+        n_tracks = check_tracks(f"{P} tracks", tracks, n)[1]
+        check_poses(f"{P} poses", poses, n)
+        with vio.VideoReader(depth_file) as r:
+            depth_rgb0 = r.read_batch(1)[0]
+
+        # (a) export
+        base = ["export", "--depth_video", depth_file, "--track_file",
+                tracks, "--transformation_file", poses, "--xfov", "60"]
+        runs = {}
+        tri_ply = os.path.join(tmp, "triangulated.ply")
+        for tag, extra in (("(a) --triangulate --save_rescaled_depth",
+                            ["--triangulate", "--save_rescaled_depth"]),
+                           ("(a) ... --global_align",
+                            ["--triangulate", "--save_rescaled_depth",
+                             "--global_align"])):
+            r = runs[tag] = command(tag, base + extra)
+            pts, _ = cloud(tag, depth_file + "_triangulated.ply")
+            cloud(tag, depth_file + "_avgmonodepth.ply")
+            r["points"] = pts.shape[0]
+            check_depth_file(tag, depth_file + "_rescaled.mkv", n, phase=P)
+            if not os.path.exists(tri_ply):
+                shutil.copy(depth_file + "_triangulated.ply", tri_ply)
+        # the grayscale frames from the codec's decode on the host
+        d0 = codec.decode_depth_frame(torch.from_numpy(depth_rgb0), 100.0,
+                                      average_rg=True).numpy()
+        for tag, flag, name, want in (
+                ("(a) --save_grayscale", "--save_grayscale",
+                 "_grayscale.mkv",
+                 np.clip(d0 / 100.0 * 255.0, 0, 255).astype(np.uint8)),
+                ("(a) --bit16", "--bit16", "_grayscale16.mkv",
+                 (np.clip(d0 / 100.0 * 65535.0, 0, 65535).astype(np.uint16)
+                  >> 8).astype(np.uint8))):
+            runs[tag] = command(tag, base + [flag])
+            g = read_all(depth_file + name)
+            if (g.shape != (n, H, W, 3) or not (g[..., 0] == g[..., 1]).all()
+                    or not (g[..., 0] == g[..., 2]).all()
+                    or not np.array_equal(g[0, ..., 0], want)):
+                raise RuntimeError(f"{P} {tag}: {g.shape}, frame 0 equal to "
+                                   f"the codec's "
+                                   f"{np.array_equal(g[0, ..., 0], want)}")
+        # per-frame PLY and OBJ, their writes timed
+        writes = {"ply": [], "obj": []}
+        real = {"ply": pcio.write_ply, "obj": pcio.write_obj}
+
+        def timed(kind):
+            def write(*a, **kw):
+                t0 = time.perf_counter()
+                out = real[kind](*a, **kw)
+                writes[kind].append(time.perf_counter() - t0)
+                return out
+            return write
+        tag = "(a) --save_ply 20 --save_obj 40 --remove_edges"
+        pcio.write_ply, pcio.write_obj = timed("ply"), timed("obj")
+        try:
+            r = runs[tag] = command(tag, base + [
+                "--color_video", clip, "--save_ply", "20", "--save_obj",
+                "40", "--remove_edges"])
+        finally:
+            pcio.write_ply, pcio.write_obj = real["ply"], real["obj"]
+        for k in (0, 20):
+            pts, cols = cloud(tag, f"{depth_file}_frame{k:06d}.ply")
+            if pts.shape != (H * W, 3) or cols is None:
+                raise RuntimeError(f"{P} {tag}: frame {k}'s PLY {pts.shape}")
+        obj = f"{depth_file}_frame000000.obj"
+        if os.path.exists(f"{depth_file}_frame000020.obj"):
+            raise RuntimeError(f"{P} {tag}: more than one OBJ")
+        k_dev = geo.camera_matrix_from_fov(W, H, xfov_deg=60.0).to(dev)
+        keep = ~rasterize.cell_edge_mask(geo.unproject_depth(
+            codec.decode_depth_frame(torch.from_numpy(depth_rgb0).to(dev),
+                                     100.0, average_rg=True), k_dev,
+            of_by_one=True)).cpu().numpy()
+        want_faces = len(pcio.grid_mesh_faces(H, W, keep=keep))
+        with open(obj, "rb") as f:
+            data = b"\n" + f.read()
+        n_v, n_f = data.count(b"\nv "), data.count(b"\nf ")
+        first = np.asarray(data[3:data.index(b"\n", 1)].split(), np.float64)
+        if (n_v, n_f) != (H * W, want_faces) or first.shape != (6,) \
+                or not np.isfinite(first).all() \
+                or n_f >= 2 * (H - 1) * (W - 1):
+            raise RuntimeError(f"{P} {tag}: OBJ {n_v} vertices, {n_f} faces "
+                               f"(expected {H * W}, {want_faces})")
+        r.update(ply_write_s=writes["ply"], obj_write_s=writes["obj"],
+                 obj_mib=len(data) / 2**20, obj_faces=n_f)
+        del data
+        log(f"[{P}] ({card}) {tag}: PLY writes {writes['ply']} s ({H * W} "
+            f"points with colors each), the OBJ's write "
+            f"{writes['obj'][0]:.3f} s ({n_v} vertices, {n_f} faces, "
+            f"{r['obj_mib']:.1f} MiB)")
+        tag = ("(a) --save_normals --merge_close_points "
+               "--show_scene_point_clouds --save_alembic")
+        runs[tag] = command(tag, base + [
+            "--triangulate", "--save_normals", "--merge_close_points",
+            "--show_scene_point_clouds", "--save_alembic"])
+        pts, _ = cloud(tag, depth_file + "_triangulated.ply", normals=True)
+        cloud(tag, depth_file + "_avgmonodepth.ply", normals=True)
+        turn = read_all(depth_file + "_clouds.mkv")
+        nt, th, tw = EV_TURNTABLE
+        if turn.shape != (nt, th, tw, 3) or (turn == 16).all():
+            raise RuntimeError(f"{P} {tag}: turntable {turn.shape}")
+        with open(depth_file + "_camera_track.json") as f:
+            track = json.load(f)
+        cams = np.asarray(track["frames"])
+        if cams.shape != (n, 4, 4) or not np.isfinite(cams).all():
+            raise RuntimeError(f"{P} {tag}: camera track {cams.shape}")
+        cloud(tag, depth_file + "_cloud.ply")
+        runs[tag]["merged_points"] = pts.shape[0]
+        res["export"] = runs
+
+        # (b) analysis
+        r = command("(b) analyse-depth", [
+            "analyse-depth", "--depth_video", depth_file, "--track_file",
+            tracks, "--transformation_file", poses, "--xfov", "60"])
+        pts, cols = cloud("(b)", depth_file + "_movement.ply")
+        red = (cols == [255, 40, 40]).all(1)
+        if not (red | (cols == 128).all(1)).all():
+            raise RuntimeError(f"{P} (b): movement colours")
+        r.update(tracks=n_tracks, points=pts.shape[0], moving=int(red.sum()))
+        res["analyse_depth"] = r
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            r = command("(b) analyse-tracking", [
+                "analyse-tracking", "--track_file", tracks, "--color_video",
+                clip])
+        r["events"] = out.getvalue().count("--- frame")
+        res["analyse_tracking"] = r
+        log(f"[{P}] ({card}) (b) {res['analyse_depth']['moving']} of "
+            f"{pts.shape[0]} tracks moving; {r['events']} cut events "
+            f"(none is due before 27 s)")
+
+        # (c) the viewer on the card, held against the CPU's frames
+        kw = dict(transformations=sidecar.load_transformations(poses),
+                  xfov=60.0, remove_edges=True)
+        zero_counts()
+        srv, src, port = viewer.serve_background(
+            depth_file, clip, background_ply=tri_ply, device=dev, **kw)
+        try:
+            meta = json.loads(_get(port, "/api/meta")[1])
+            t0 = time.perf_counter()
+            blobs = [_get(port, f"/frame/{k}") for k in range(EV_VIEW_FRAMES)]
+            served = EV_VIEW_FRAMES / (time.perf_counter() - t0)
+            bg = _get(port, "/background")
+            missing = _get(port, f"/frame/{meta['frames']}")[0]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            src.close()
+        expect_counts(f"{P} (c) viewer", {}, none)
+        if (meta["frames"], meta["width"], meta["height"]) != (n, W, H) \
+                or any(code != 200 for code, _ in blobs) or missing != 404 \
+                or bg != (200, viewer._pack_background(tri_ply)):
+            raise RuntimeError(f"{P} (c): meta {meta}, statuses "
+                               f"{[c for c, _ in blobs]}, {missing}")
+        cpu = viewer.FrameSource(depth_file, clip, device="cpu", **kw)
+        try:
+            held = [same_viewer_frames(f"frame {k}", b,
+                                       cpu.frame_payload(k))
+                    for k, (_, b) in enumerate(blobs)]
+        finally:
+            cpu.close()
+        res["viewer"] = {"grid": meta["grid"], "frames_per_s": served,
+                         "valid_share": [v for v, _ in held],
+                         "max_code_diff": max(c for _, c in held),
+                         "background_bytes": len(bg[1])}
+        log(f"[{P}] ({card}) (c) viewer: {EV_VIEW_FRAMES} frames of a "
+            f"{meta['grid'][0]} x {meta['grid'][1]} grid served at "
+            f"{served:.3f} frames/s; equal to the CPU's by the tests' rule "
+            f"(codes within {res['viewer']['max_code_diff']}); background "
+            f"{len(bg[1])} bytes")
+
+        # (d) the GUI on a one-scene project: its run launches B1
+        gdir = os.path.join(tmp, "gui")
+        os.makedirs(gdir)
+        movie_clip = os.path.join(gdir, "movie.mkv")
+        ng = EV_GUI_FRAMES
+        vio.save_rgb_video(frames[:ng], movie_clip, 24)
+        root = os.path.join(gdir, "project")
+        project.create_project(root, movie_clip, xfov=60.0)
+        srv, state, port = gui.serve_background(root, device=dev)
+        try:
+            status = json.loads(_get(port, "/api/status")[1])
+            if [s["frames"] for s in status["scenes"]] != [str(ng)] \
+                    or status["scenes"][0]["sbs"]:
+                raise RuntimeError(f"{P} (d): status {status['scenes']}")
+            zero_counts()
+            t0 = time.perf_counter()
+            if json.loads(_get(port, "/api/run", {})[1]) != {
+                    "started": True}:
+                raise RuntimeError(f"{P} (d): the run did not start")
+            # the run's stdout goes to the GUI's log: no log() until it ends
+            while state.running and time.perf_counter() - t0 < 600:
+                time.sleep(0.2)
+            state.worker.join(60)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lines = json.loads(_get(port, "/api/logs?start=0")[1])["lines"]
+            if "[run finished]" not in lines:
+                raise RuntimeError(f"{P} (d): the GUI's run: "
+                                   f"{state.last_error}; log tail "
+                                   f"{lines[-5:]}")
+            batches = -(-ng // 8)
+            expect_counts(f"{P} (d) gui run", {"disparity_sweep":
+                                               2 * batches},
+                          f"{batches} stereo batches of up to 8 frames x 2 "
+                          f"eyes, main + anchor sweep per batch")
+            status = json.loads(_get(port, "/api/status")[1])["scenes"][0]
+            files = json.loads(_get(port, "/api/scene_files?scene=1")[1])
+            code, jpg = _get(port, "/video/frame?f=" + files["files"]["sbs"]
+                             + "&i=5")
+            if not all(status[k] for k in ("clip", "depth", "mask", "sbs",
+                                           "infilled")) \
+                    or code != 200 or jpg[:2] != b"\xff\xd8" \
+                    or files["meta"]["sbs"]["frames"] != ng:
+                raise RuntimeError(f"{P} (d): status {status}, files "
+                                   f"{files}, frame {code}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            state.player.close()
+        for path in (os.path.join(root, "scene_1.mkv_depth.mkv_stereo.mkv"),
+                     os.path.join(gdir, "movie_SBS.mkv")):
+            count, width, height, _ = vio.video_info(path)
+            if (count, width, height) != (ng, 2 * W, H):
+                raise RuntimeError(f"{P} (d): {path}: {count} frames of "
+                                   f"{width} x {height}")
+        if mkv.get_stereo_mode(os.path.join(gdir, "movie_SBS.mkv")) \
+                != mkv.STEREO_SBS_LEFT_FIRST:
+            raise RuntimeError(f"{P} (d): the movie's StereoMode")
+        res["gui"] = {"run_s": wall, "frames": ng, "launches": 2 * batches,
+                      "log_lines": len(lines), "jpeg_bytes": len(jpg)}
+        log(f"[{P}] ({card}) (d) GUI run of a {ng}-frame 1080p project "
+            f"(the movie at the project's defaults): {wall:.3f} s, "
+            f"{ng / wall:.3f} source frames/s, {len(lines)} log lines")
+
+        # (e) io/native against its numpy path
+        zero_counts()
+        d0 = film_depth(metric[:1])[0]
+        enc, dec = native.encode_depth_rgb(d0, 100.0), \
+            native.decode_rgb_depth(depth_rgb0, 100.0)
+        cloud_pts, cloud_cols = pcio.read_ply(f"{depth_file}_frame000000.ply")
+        ply = native.ply_bytes(cloud_pts, cloud_cols)
+        find = native._find_lib
+        native._find_lib = lambda: None
+        try:
+            enc_np = native.encode_depth_rgb(d0, 100.0)
+            dec_np = native.decode_rgb_depth(depth_rgb0, 100.0)
+            ply_np = native.ply_bytes(cloud_pts, cloud_cols)
+        finally:
+            native._find_lib = find
+        with open(f"{depth_file}_frame000000.ply", "rb") as f:
+            ply_file = f.read()
+        code_diff = int(np.abs(
+            (enc[..., 0].astype(np.int64) << 8 | enc[..., 2])
+            - (enc_np[..., 0].astype(np.int64) << 8 | enc_np[..., 2])).max())
+        expect_counts(f"{P} (e) io/native", {}, none)
+        if not np.array_equal(dec, dec_np) or code_diff > 1 \
+                or not ply == ply_np == ply_file:
+            raise RuntimeError(f"{P} (e): native vs numpy: decode equal "
+                               f"{np.array_equal(dec, dec_np)}, codes within "
+                               f"{code_diff}, PLY equal "
+                               f"{ply == ply_np} / {ply == ply_file}")
+        res["native"] = {"built": built, "build_or_load_s": build_s,
+                         "encode_code_diff": code_diff}
+        state = ("built or found" if built
+                 else "not built (no toolchain): the numpy path")
+        log(f"[{P}] ({card}) (e) io/native: the C++ library {state} in "
+            f"{build_s:.3f} s at the phase's start; decode equal to numpy's, "
+            f"encode within {code_diff} code, PLY bytes equal to "
+            f"write_ply's")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{P}] ({card}) phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main():
     t_script = time.perf_counter()
     try:
@@ -4948,10 +5418,12 @@ def main():
                           "directory and time them beside this checkout's "
                           "(phase 2's bitmap ablation)")
     cli.add_argument("--only", choices=("single_frame", "depth_engines",
-                                        "tracking"),
+                                        "tracking", "export_view"),
                      help="run the build, phases 3-4 (the clip and the SBS "
-                          "frames it needs; tracking: phase 3 alone) and "
-                          "this phase alone; prints no device line")
+                          "frames it needs; tracking and export_view: phase "
+                          "3 alone, export_view then making its own tracks "
+                          "and poses) and this phase alone; prints no "
+                          "device line")
     opts = cli.parse_args()
     baseline_csrc = opts.baseline_csrc
 
@@ -5031,6 +5503,18 @@ def main():
                                   expect_counts, smi[0])
         mark("tracking")
         log(json.dumps({"tracking": tracking, "card": smi[0]}))
+        log(json.dumps({"phase_end_s": phase_end_s}))
+        log(smi[0])
+        return 0
+    if opts.only == "export_view":
+        metric, frames, _ = phase_depth(gen, dev)
+        mark("depth")
+        gc.collect()
+        torch.cuda.empty_cache()
+        export_view = phase_export_view(metric, frames, dev, zero_counts,
+                                        expect_counts, smi[0])
+        mark("export_view")
+        log(json.dumps({"export_view": export_view, "card": smi[0]}))
         log(json.dumps({"phase_end_s": phase_end_s}))
         log(smi[0])
         return 0
@@ -5139,9 +5623,15 @@ def main():
     mark("depth_engines")
     gc.collect()
     torch.cuda.empty_cache()
-    tracking = phase_tracking(metric, frames, dev, zero_counts,
-                              expect_counts, smi[0])
-    mark("tracking")
+    with tempfile.TemporaryDirectory() as kept:
+        tracking = phase_tracking(metric, frames, dev, zero_counts,
+                                  expect_counts, smi[0], keep=kept)
+        mark("tracking")
+        gc.collect()
+        torch.cuda.empty_cache()
+        export_view = phase_export_view(metric, frames, dev, zero_counts,
+                                        expect_counts, smi[0], inputs=kept)
+    mark("export_view")
 
     def over(r):
         return r["ms"] / r["library_ms"] if r.get("library_ms") else None
@@ -5160,6 +5650,7 @@ def main():
         "launches": launches,
         "movie_launches": movie_launches,
         "touchly1_launches": stereo_paths["touchly1_launches"],
+        "gui_launches": export_view["gui"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in (
             *sweep.values(), *movie_sweeps.values())),
         "ms": main_["ms"], "plain_ms": main_["plain_ms"],
@@ -5257,6 +5748,7 @@ def main():
     log(json.dumps({"single_frame": single_frame, "card": smi[0]}))
     log(json.dumps({"depth_engines": depth_engines, "card": smi[0]}))
     log(json.dumps({"tracking": tracking, "card": smi[0]}))
+    log(json.dumps({"export_view": export_view, "card": smi[0]}))
     log(json.dumps({"phase_end_s": phase_end_s}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])

@@ -12,8 +12,8 @@
   mdvt-torch convergence  find_convergence_depth
   mdvt-torch infill    SBS infill (every --infill_engine of the JAX CLI)
   mdvt-torch download-weights  fetch published checkpoints, --convert them
-  mdvt-torch view      view_depthfile --render (novel-view render to video;
-                       the interactive viewer is not ported yet)
+  mdvt-torch view      view_depthfile: the interactive web viewer, or with
+                       --render the novel-view render to video
   mdvt-torch split-sbs split an SBS video into _left / _right videos
   mdvt-torch inpaint   inpaint a static overlay region in every frame
   mdvt-torch project   headless project manager (create, status, set,
@@ -25,9 +25,15 @@
   mdvt-torch flow      optical_flow (RAFT) -> colour-coded flow video
   mdvt-torch slam      sam_track_video: camera tracking with global bundle
                        adjustment (LK, or the DROID-class front-end)
+  mdvt-torch export    convert_depth_format: grayscale, PLY / OBJ,
+                       triangulated clouds, rescaled depth, camera track
+  mdvt-torch analyse-depth     moving tracks against depth (movement cloud)
+  mdvt-torch analyse-tracking  scene cuts from track connectivity
+  mdvt-torch gui       the web project GUI (scenes, overrides, runs)
 
-The JAX package's other subcommands are not ported yet; naming one says
-so. The tools run on the CUDA device unless ``MDVT_PLATFORM=cpu``.
+``mdvt-torch bench`` (the JAX package's root ``bench.py``) is not ported;
+naming it says so. The tools run on the CUDA device unless
+``MDVT_PLATFORM=cpu``.
 """
 
 from __future__ import annotations
@@ -71,11 +77,17 @@ SUBCOMMANDS = {
              "main"),
     "slam": ("metric_depth_video_toolbox_tpu_torch.cli.sam_track_video",
              "main"),
+    "export": ("metric_depth_video_toolbox_tpu_torch.cli."
+               "convert_depth_format", "main"),
+    "analyse-tracking": ("metric_depth_video_toolbox_tpu_torch.cli."
+                         "analyse_tracking", "main"),
+    "analyse-depth": ("metric_depth_video_toolbox_tpu_torch.cli."
+                      "analyse_depth", "main"),
+    "gui": ("metric_depth_video_toolbox_tpu_torch.cli.gui", "main"),
 }
 
-# the JAX package's other subcommands -> the ROADMAP item that ports them
-NOT_PORTED = {"export": "A15", "analyse-tracking": "A15",
-              "analyse-depth": "A15", "gui": "A15", "bench": "A9"}
+# the JAX package's other subcommand -> the ROADMAP item that covers it
+NOT_PORTED = {"bench": "A9"}
 
 
 def main(argv=None):

@@ -1,7 +1,8 @@
-"""CLI: render a depth video from a free camera (``--render``), with the
-flags and defaults of the JAX package's ``cli/view_depthfile.py``. Without
-``--render`` the JAX package serves its interactive web viewer, which is
-not ported yet (ROADMAP A15)."""
+"""CLI: view or render a depth video in 3D, with the flags and defaults of
+the JAX package's ``cli/view_depthfile.py``. Without ``--render`` it serves
+the interactive web viewer (``pipeline/viewer.py``) until interrupted; with
+``--render`` it renders a free camera's view to a video
+(``pipeline/view.py``)."""
 
 from __future__ import annotations
 
@@ -38,8 +39,7 @@ def build_parser(parser=None):
     p.add_argument("--ty", type=float)
     p.add_argument("--tz", type=float)
     p.add_argument("--render", action="store_true",
-                   help="render to video (the interactive viewer is not "
-                        "ported yet)")
+                   help="render to video instead of the interactive viewer")
     p.add_argument("--port", type=int, default=8124,
                    help="interactive viewer port")
     p.add_argument("--viewer_max_points", type=int, default=400_000,
@@ -51,12 +51,20 @@ def run(args, device=None):
     from metric_depth_video_toolbox_tpu_torch.io import sidecar
     from metric_depth_video_toolbox_tpu_torch.pipeline import view
 
-    if not args.render:
-        raise NotImplementedError(
-            "not ported yet: the interactive viewer (view without --render, "
-            "ROADMAP A15); pass --render to render to a video")
     transforms = (sidecar.load_transformations(args.transformation_file)
                   if args.transformation_file else None)
+    if not args.render:
+        from metric_depth_video_toolbox_tpu_torch.pipeline import viewer
+        viewer.serve(
+            args.depth_video, color_video=args.color_video, port=args.port,
+            background_ply=args.background_ply, mask_video=args.mask_video,
+            invert_mask=args.invert_mask, xfov=args.xfov, yfov=args.yfov,
+            max_depth=args.max_depth, transformations=transforms,
+            transformation_lock_frame=args.transformation_lock_frame,
+            remove_edges=args.remove_edges,
+            max_points=args.viewer_max_points, max_frames=args.max_frames,
+            device=device)
+        return None
     target = None
     if args.tx is not None or args.ty is not None or args.tz is not None:
         target = (args.tx or 0.0, args.ty or 0.0, args.tz or 0.0)

@@ -146,3 +146,76 @@ def upstream_style_point_maps(monkeypatch, jdepth, tdepth):
             m = self._models[tuple(work_hw)] = _UpstreamStyle(m)
         return m
     monkeypatch.setattr(tdepth.SingleFrameEngine, "model", model)
+
+
+def tracked_scene(root, t=10, h=48, w=64, n_points=60, seed=0):
+    """A small clip of a static scene seen from a camera moving along x
+    and turning a little, as the files the export, analysis and viewer
+    tests read, written with the port's writers (the JAX package's write
+    the same bytes: checked here). -> dict of paths and arrays
+
+    ``depth.mkv``: a slanted plane (6-16 m) with each tracked point's true
+    depth times 1.1 at its pixel (so the rescale has work to do);
+    ``tracking.json``: the points' pixels, every 7th point absent in odd
+    frames, one point off the right edge in frame 2; ``transforms.json``:
+    the camera-to-world poses; ``color.mkv`` a random texture;
+    ``mask.mkv`` the top-left quadrant white in frames 3 and 4."""
+    import os
+
+    from metric_depth_video_toolbox_tpu.io import sidecar as jside
+    from metric_depth_video_toolbox_tpu.ops import geometry as jgeo
+    from metric_depth_video_toolbox_tpu_torch.io import sidecar as tside
+    from metric_depth_video_toolbox_tpu_torch.io import video as tvio
+
+    rng = np.random.default_rng(seed)
+    k = np.asarray(jgeo.camera_matrix_from_fov(w, h, xfov_deg=60.0),
+                   np.float32)
+    world = np.stack([rng.uniform(-2.5, 3.5, n_points),
+                      rng.uniform(-1.5, 1.5, n_points),
+                      rng.uniform(5, 12, n_points)], -1).astype(np.float32)
+    yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    depth = np.tile(6 + 10 * yy, (t, 1, w)).astype(np.float32)
+    transforms, tracks = [], []
+    for fi in range(t):
+        a = np.radians(0.4 * fi)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                       [-np.sin(a), 0, np.cos(a)]]
+        c2w[:3, 3] = [0.25 * fi, 0.02 * fi, 0.0]
+        transforms.append(c2w)
+        w2c = np.linalg.inv(c2w)
+        pc = world @ w2c[:3, :3].T + w2c[:3, 3]
+        uv = (pc[:, :2] / pc[:, 2:3] * [k[0, 0], k[1, 1]]
+              + [k[0, 2], k[1, 2]])
+        rows = []
+        for gid, (p, q) in enumerate(zip(pc, uv)):
+            if fi % 2 and gid % 7 == 0:
+                continue
+            x, y = int(round(q[0])), int(round(q[1]))
+            if 0 <= x < w and 0 <= y < h:
+                depth[fi, y, x] = 1.1 * p[2]
+                rows.append([gid + 3, q[0], q[1]])
+        if fi == 2:
+            rows.append([1, w + 0.7, h / 2])
+        tracks.append(np.asarray(rows, np.float32))
+    color = rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8)
+    mask = np.zeros((t, h, w, 3), np.uint8)
+    mask[3:5, :h // 2, :w // 2] = 255
+
+    paths = {name: os.path.join(root, name) for name in (
+        "depth.mkv", "color.mkv", "mask.mkv", "tracking.json",
+        "transforms.json")}
+    tvio.save_depth_video(depth, paths["depth.mkv"], 24, 100.0)
+    tvio.save_rgb_video(color, paths["color.mkv"], 24)
+    tvio.save_rgb_video(mask, paths["mask.mkv"], 24)
+    tside.save_tracking(paths["tracking.json"], tracks)
+    tside.save_transformations(paths["transforms.json"], transforms)
+    for save, name, obj in ((jside.save_tracking, "tracking.json", tracks),
+                            (jside.save_transformations, "transforms.json",
+                             transforms)):
+        save(paths[name] + ".jax", obj)
+        with open(paths[name], "rb") as a, open(paths[name] + ".jax",
+                                                "rb") as b:
+            assert a.read() == b.read(), name
+    return dict(paths, depth=depth, color=color, world=world, k=k,
+                transforms=np.stack(transforms))

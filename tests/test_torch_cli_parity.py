@@ -17,11 +17,15 @@ from metric_depth_video_toolbox_tpu_torch.io import video as tvio
 REFERENCE_COMMANDS = sorted(jmain.SUBCOMMANDS) + ["bench"]
 
 
+def test_only_bench_is_not_ported():
+    assert tmain.NOT_PORTED == {"bench": "A9"}
+
+
 @pytest.mark.parametrize("command", REFERENCE_COMMANDS)
 def test_every_reference_subcommand_is_accepted(command, capsys):
     """Ported subcommands reach their own parser (``--help`` exits 0 or
-    returns); the others exit with their not-ported line. None is an
-    invalid choice."""
+    returns); the others (``bench`` alone) exit with their not-ported
+    line. None is an invalid choice."""
     assert command in tmain.SUBCOMMANDS or command in tmain.NOT_PORTED
     if command in tmain.NOT_PORTED:
         with pytest.raises(SystemExit, match="not ported yet"):
@@ -131,7 +135,10 @@ def _parsers(command, monkeypatch):
              "split-sbs": "split_sbs_video", "inpaint": "apply_inpainting",
              "project": "project", "upscale": "upscale_depth",
              "track": "track_points_in_video", "align": "align_3d_points",
-             "flow": "optical_flow", "slam": "sam_track_video"}
+             "flow": "optical_flow", "slam": "sam_track_video",
+             "export": "convert_depth_format",
+             "analyse-depth": "analyse_depth",
+             "analyse-tracking": "analyse_tracking", "gui": "gui"}
     return tuple(importlib.import_module(f"{pkg}.cli.{names[command]}")
                  .build_parser() for pkg in pkgs)
 
@@ -146,7 +153,8 @@ UNPORTED_FLAGS = {"movie": (), "mask": (), "convergence": (), "infill": (),
                   "engine videoanythingmetric": (), "upscale": (),
                   "engine depthcrafter": (), "engine geometrycrafter": (),
                   "engine mvsa": (), "track": (), "align": (), "flow": (),
-                  "slam": ()}
+                  "slam": (), "export": (), "analyse-depth": (),
+                  "analyse-tracking": (), "gui": ()}
 
 
 @pytest.mark.parametrize("command", sorted(UNPORTED_FLAGS))

@@ -222,6 +222,73 @@ def test_tracking_commands_run_with_jax_blocked():
     assert res.stdout.strip().endswith("OK")
 
 
+A15 = """
+import sys
+for name in ("jax", "jaxlib", "flax", "msgpack",
+             "metric_depth_video_toolbox_tpu"):
+    sys.modules[name] = None
+import json, os, tempfile, urllib.request
+import numpy as np
+from metric_depth_video_toolbox_tpu_torch.cli import main
+from metric_depth_video_toolbox_tpu_torch.io import native, sidecar
+from metric_depth_video_toolbox_tpu_torch.io import video as vio
+from metric_depth_video_toolbox_tpu_torch.pipeline import gui, project, viewer
+rng = np.random.default_rng(0)
+depth = np.tile(np.linspace(3, 9, 32, dtype=np.float32)[:, None], (6, 1, 48))
+world = np.stack([rng.uniform(-1, 1, 20), rng.uniform(-0.5, 0.5, 20),
+                  rng.uniform(4, 8, 20)], -1)
+tracks, poses = [], []
+for fi in range(6):
+    c2w = np.eye(4)
+    c2w[0, 3] = 0.3 * fi
+    pc = world - c2w[:3, 3]
+    uv = pc[:, :2] / pc[:, 2:] * 41.6 + [24, 16]
+    tracks.append([[i, u, v] for i, (u, v) in enumerate(uv)])
+    poses.append(c2w)
+with tempfile.TemporaryDirectory() as tmp:
+    dv = os.path.join(tmp, "d.mkv")
+    vio.save_depth_video(depth, dv, 24, 100.0)
+    clip = os.path.join(tmp, "c.mkv")
+    vio.save_rgb_video(rng.integers(0, 256, (16, 32, 48, 3), np.uint8),
+                       clip, 24)
+    tr, tf = os.path.join(tmp, "t.json"), os.path.join(tmp, "p.json")
+    sidecar.save_tracking(tr, tracks)
+    sidecar.save_transformations(tf, poses)
+    main.main(["export", "--depth_video", dv, "--track_file", tr,
+               "--transformation_file", tf, "--xfov", "60", "--triangulate",
+               "--min_observations", "3", "--save_grayscale", "--save_obj",
+               "3", "--save_normals"])
+    assert os.path.exists(dv + "_triangulated.ply")
+    main.main(["analyse-depth", "--depth_video", dv, "--track_file", tr])
+    main.main(["analyse-tracking", "--track_file", tr])
+    srv, src, port = viewer.serve_background(dv, clip, max_points=500)
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/frame/2") as r:
+        assert r.read()[:4] == b"TVDM"
+    srv.shutdown(); srv.server_close(); src.close()
+    project.create_project(os.path.join(tmp, "proj"), clip)
+    srv, state, port = gui.serve_background(os.path.join(tmp, "proj"))
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/status") as r:
+        assert len(json.loads(r.read())["scenes"]) >= 1
+    srv.shutdown(); srv.server_close()
+rgb = native.encode_depth_rgb(depth[0], 100.0)
+assert np.abs(native.decode_rgb_depth(rgb, 100.0) - depth[0]).max() < 2e-3
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("OK")
+"""
+
+
+def test_export_analysis_viewer_and_gui_run_with_jax_blocked():
+    """``export``, ``analyse-depth`` and ``analyse-tracking`` through
+    ``mdvt-torch``, the viewer's and the GUI's servers, and ``io/native``
+    on a tiny clip, on the CPU, with the JAX package, JAX, Flax and msgpack
+    unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), MDVT_PLATFORM="cpu")
+    res = subprocess.run([sys.executable, "-c", A15], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("MDVT_PLATFORM", raising=False)

@@ -159,6 +159,38 @@ def test_view_cli_renders_and_matches_reference_flags(clip, monkeypatch):
     assert flags(tcli.build_parser()) == flags(jcli.build_parser())
 
 
-def test_view_without_render_raises_naming_a15(clip):
-    with pytest.raises(NotImplementedError, match="A15"):
-        tmain.main(["view", "--depth_video", clip["depth"]])
+def test_view_without_render_serves_the_viewer(clip, monkeypatch):
+    """``mdvt-torch view`` without ``--render`` serves the interactive
+    viewer (it raised naming ROADMAP A15 before the viewer was ported):
+    the server answers ``/api/meta`` and a frame, then an interrupt ends
+    ``serve``, which closes its source."""
+    import json
+    import threading
+    import urllib.request
+
+    from metric_depth_video_toolbox_tpu_torch.pipeline import viewer
+
+    monkeypatch.setenv("MDVT_PLATFORM", "cpu")
+    got = {}
+    real = viewer.ThreadingHTTPServer.serve_forever
+
+    def serve_forever(srv):
+        t = threading.Thread(target=real, args=(srv,), daemon=True)
+        t.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        with urllib.request.urlopen(url + "/api/meta", timeout=60) as r:
+            got["meta"] = json.loads(r.read())
+        with urllib.request.urlopen(url + "/frame/1", timeout=60) as r:
+            got["frame"] = r.read()
+        srv.shutdown()
+        t.join(30)
+        got["stopped"] = not t.is_alive()
+        raise KeyboardInterrupt
+    monkeypatch.setattr(viewer.ThreadingHTTPServer, "serve_forever",
+                        serve_forever)
+    tmain.main(["view", "--depth_video", clip["depth"], "--color_video",
+                clip["color"], "--port", "0", "--max_frames", "3"])
+    assert got["meta"]["frames"] == 3 and got["meta"]["grid"] == [H, W]
+    assert got["frame"][:4] == (0x4D445654).to_bytes(4, "little")
+    assert len(got["frame"]) == 32 + H * W * 9 + 96
+    assert got["stopped"]
