@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--baseline-csrc DIR]
                           [--only single_frame|depth_engines|tracking|
-                                  export_view]
+                                  export_view|parallel]
 
 Run from the repository root on a machine with a CUDA card. Phases, each
 of which fails the run on error:
@@ -48,12 +48,13 @@ of which fails the run on error:
                 fused_anchor_sweep on the synthetic scene (counts zeroed
                 before, read after: one fused launch per batch).
   5. infill     the second main path: the InSpatio-World causal infill
-                (WAN_1_3B, bfloat16, seeded weights, 480x832 working size,
+                (WAN_1_3B's widths, its depth cut to WAN_LAYERS = 6 of 30
+                DiT blocks, bfloat16, seeded weights, 480x832 working size,
                 the inspatio_world preset's flags with chunk 40) on the
                 phase-4 SBS frames and infill mask, with the synthetic
                 clip as the source video; counts zeroed before, read
-                after (960 block-causal launches: 2 eyes x 16 DiT forwards
-                x 30 layers).
+                after (192 block-causal launches: 2 eyes x 16 DiT forwards
+                x 6 blocks).
   6. da3        the third main path: the DA3 engine (DA3_L: ViT-L with
                 cross-view attention in the 12 odd blocks, dual DPT head,
                 504, bfloat16, seeded weights, windows of 40 + 6 reference
@@ -103,7 +104,8 @@ of which fails the run on error:
                 on the flash_packed route (48 packed-attention launches,
                 every grafted weight equal to the file's); (c) ``infill
                 --infill_engine inspatio_world --checkpoint`` with a {dit,
-                enc, dec} tree at WAN_1_3B (WAN_TINY, said so, when the
+                enc, dec} tree at WAN_1_3B's widths and phase 5's depth
+                (WAN_TINY, said so, when the
                 script has run past CKPT_WAN_CUTOFF_S) on 16 SBS frames,
                 the preset's 225-frame chunk cut to 16 (block-causal
                 launches); (d) every file read back and held
@@ -158,8 +160,9 @@ of which fails the run on error:
                 models are freed), file to file through cli/main.py on
                 phase 3's first 16 frames: (a) ``engine moge``, ``unik3d``,
                 ``unidepth --xfov 60`` and ``depthpro`` at their _L presets
-                with ``--checkpoint`` on a file converted from a seeded
-                upstream-layout state dict (the layouts of moge_shapes,
+                (DepthPro's ViT-L towers cut to SF_DEPTHPRO_VIT_DEPTH = 12
+                blocks) with ``--checkpoint`` on a file converted from a
+                seeded upstream-layout state dict (the layouts of moge_shapes,
                 unidepth_shapes, depthpro_hf_shapes; the ViT's position
                 embedding at the 1080p working grid), each with its wall,
                 frames/s, peak memory, xfovs range and one batch under
@@ -204,8 +207,8 @@ of which fails the run on error:
                 weights and noise).
  14. tracking  tracking, pose and flow (after the earlier phases' models
                 are freed), file to file through cli/main.py on phase 3's
-                1080p clip (40 frames; its depth mapped onto 1-30 m, as
-                phase 11's): (a) ``track`` at the defaults (LK, grid 36,
+                1080p clip (its first 24 frames; its depth mapped onto
+                1-30 m, as phase 11's): (a) ``track`` at the defaults (LK, grid 36,
                 clip_len 120) and ``track --engine cotracker3 --weights``
                 on a file converted from a seeded upstream-layout state
                 dict at COTRACKER3; (b) ``align`` with each solver
@@ -223,8 +226,8 @@ of which fails the run on error:
                 their tiny presets in float32 on the card and on the CPU
                 (the CPU tests' tolerances).
  15. export_view export, analysis, the interactive viewer and the GUI
-                (after the earlier phases' models are freed) on phase 3's
-                40-frame 1080p clip (depth on 1-30 m) with phase 14's LK
+                (after the earlier phases' models are freed) on phase 14's
+                24-frame 1080p clip (depth on 1-30 m) with phase 14's LK
                 tracks and ``slam`` poses: (a) ``export`` through
                 cli/main.py with ``--triangulate --save_rescaled_depth``,
                 the same with ``--global_align``, ``--save_grayscale`` and
@@ -245,6 +248,26 @@ of which fails the run on error:
                 ``io/native`` (the C++ library built with ``make`` where
                 there is a toolchain) against its numpy path. No launch on
                 (a)-(c) and (e).
+ 16. parallel  multi-GPU and the scene scheduler: (a) the movie's step 5
+                with ``parallel=2`` (two worker threads, one stream) over
+                a copy of phase 7's two scenes (clip, depth, convergence),
+                its SBS and infill-mask frames equal to phase 7's serial
+                render, B1 launched as often as in phase 7's step 5
+                (counts zeroed before, read after), its wall beside phase
+                7's; (b) the train step (``parallel/train.py``) on
+                Depth-Anything ViT-S metric at its bfloat16 preset, 8 x 518
+                x 518, on a ``make_mesh`` of one NCCL rank with the TP plan
+                applied: 5 steps, ms per step after the first, peak memory,
+                each loss; step 1's loss and the parameters' checksum held
+                against the same step on the CPU (TF32 off; PA_LOSS_RTOL,
+                PA_CHECKSUM_SHARE); no launch; (c) ``VDAEngine`` (VDA-S,
+                16 frames of phase 3's clip) and ``DiffusionInfillEngine``
+                (DIFFUSION_TINY, one 8-frame chunk of phase 4's right eye)
+                over a frame mesh of two replicas on this card (the tests'
+                seam, ``parallel.mesh.replicas``) against the same engines
+                without one (PA_VDA_MEAN, PA_VDA_MAX_SHARE, PA_INFILL_LSB),
+                and ``data_parallel=True`` building no mesh on a one-card
+                machine; no launch.
 
 It then prints a JSON line of the kernels' launches, times, bounds,
 library times (and kernel / library ratios), registers and spilled bytes,
@@ -256,6 +279,7 @@ package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import os
 import subprocess
@@ -267,6 +291,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "metric_depth_video_toolbox_tpu_torch"
 
 H, W = 1080, 1920
+WATCHDOG_S = 1100.0            # of the 1200 s the script has
 BATCH = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside tensor cores
@@ -276,6 +301,10 @@ WAN_N, WAN_BLOCKS = 18720, 4   # the infill phase's tokens and causal blocks
 # the inspatio_world preset's 225-frame chunk: 57 latent frames of 30 x 52
 PROD_N, PROD_BLOCKS = 88920, 19
 INFILL_FRAMES = 40
+# Wan 1.3B's widths with its depth cut to this many of its 30 DiT blocks
+# (phase 5, its profile in phase 10 and the checkpoint of phase 7c; 30
+# until PR 15, when the script outgrew its 1200 s)
+WAN_LAYERS = 6
 MOVIE_SCENE_FRAMES = 16        # the movie phase: two scenes of 16 frames
 MOVIE_BATCH = 16               # the movie's stereo batch (its default)
 # DA3_L on a 1080p clip longer than its 40-frame window: 504 x 896 working
@@ -333,10 +362,14 @@ def synth_scene(b, gen, device, h=None, w=None, shift_px=0):
             col.clamp(0, 255).to(torch.uint8))
 
 
-def gpu_ms(fn, iters):
+def gpu_ms(fn, iters, warm=True):
+    """ms per call of ``fn`` over ``iters`` calls, after one warm-up call
+    unless ``warm`` is False (a plain version the check has just run on
+    the same inputs)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -348,13 +381,63 @@ def gpu_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def channel_any(a):
+    """(..., C) array -> (...) bool, some channel nonzero: np.any(a != 0,
+    -1) with one pass per channel (numpy's reduction over a short last
+    axis of 1080p frames takes seconds)."""
+    out = a[..., 0] != 0
+    for c in range(1, a.shape[-1]):
+        out |= a[..., c] != 0
+    return out
+
+
+def differs(a, b):
+    """(..., C) arrays -> (...) bool, some channel differs."""
+    out = a[..., 0] != b[..., 0]
+    for c in range(1, a.shape[-1]):
+        out |= a[..., c] != b[..., c]
+    return out
+
+
+def same_where(a, b, keep):
+    """np.array_equal(a[keep], b[keep]) for (..., C) arrays of one shape
+    and a (...) mask, without copying the kept rows out."""
+    return a.shape == b.shape and not (differs(a, b) & keep).any()
+
+
+def changed_share(a, b, where):
+    """float((a[where] != b[where]).any(-1).mean()): the share of the
+    masked pixels where some channel differs."""
+    import numpy as np
+
+    return float(np.count_nonzero(differs(a, b) & where)
+                 / np.count_nonzero(where))
+
+
+def gpu_ms_once(fn):
+    """(ms of one call of ``fn``, its result): the device time between
+    events around the call (the kernel checks time their plain version on
+    the call that gives the reference)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def sweep_stream(depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
-                 block_rows, num_planes, pad_left):
+                 block_rows, num_planes, pad_left, reads=True):
     """What one depth stream of a sweep needs on these inputs -> (tests,
     hits, depth columns read, payload columns read, counts): the (pixel,
     active plane) tests up to each pixel's first hit, the hits, and per
     (element, row, padded column) whether some test reads the depth there
-    and whether some hit blends the payload there; ``counts`` has the
+    and whether some hit blends the payload there (None for both unless
+    ``reads``); ``counts`` has the
     inactive planes a pixel passes before its first hit (what a loop over
     all P planes iterates in vain) and the tests that survive the sweep
     core's float32 pre-test (``warp_sweep.sweep_pretest``: the float64
@@ -366,40 +449,56 @@ def sweep_stream(depth_pad, disp_int, disp_frac, plane_z, plane_tol, active,
     b, h, wp = depth_pad.shape
     w = wp - 2 * pad_left - 2 * ws.LANE
     dev = depth_pad.device
+    if not bool(active[..., :num_planes].any()):
+        # no tile active: no test, no hit, every plane passed in vain
+        none = (torch.zeros((b, h, wp), dtype=torch.bool, device=dev)
+                if reads else None)
+        return (0, 0, none, None if none is None else none.clone(), {
+            "tests": 0, "inactive_iterations": num_planes * b * h * w,
+            "pretest_survivors": 0, "hits": 0, "pixels": b * h * w})
     found = torch.zeros((b, h, w), dtype=torch.bool, device=dev)
-    depth_reads = torch.zeros((b, h, wp), dtype=torch.int32, device=dev)
-    payload_reads = torch.zeros((b, h, wp), dtype=torch.int32, device=dev)
-    tests = inactive = survivors = 0
+    depth_reads = payload_reads = None
+    if reads:
+        depth_reads = torch.zeros((b, h, wp), dtype=torch.int32, device=dev)
+        payload_reads = torch.zeros((b, h, wp), dtype=torch.int32,
+                                    device=dev)
+    # summed on the card, read once at the end
+    tests, inactive, survivors = (torch.zeros((), dtype=torch.int64,
+                                              device=dev) for _ in range(3))
     row_tile = torch.arange(h, device=dev) // block_rows
     x = torch.arange(w, device=dev)
     for p in range(num_planes):
         act = (active[:, row_tile, p] > 0)[:, :, None]
         tested = act & ~found
-        tests += int(tested.sum())
-        inactive += int((~act & ~found).sum())
-        s = x[None, :] + (disp_int[:, p].long() + pad_left)[:, None]
-        s = s[:, None, :].expand(b, h, w)
+        tests += tested.sum()
+        inactive += (~act & ~found).sum()
+        # the columns a plane reads are the same in every row: (b, 1, w)
+        s = (x[None, :] + (disp_int[:, p].long() + pad_left)[:, None])[
+            :, None, :]
         gathered = []
         for idx in (s, s + 1):          # zero outside the padded row
             inside = (idx >= 0) & (idx < wp)
-            idx = idx.clamp(0, wp - 1)
+            idx = idx.clamp(0, wp - 1).expand(b, h, w)
             gathered.append((idx, tested & inside, torch.where(
                 inside, torch.gather(depth_pad, 2, idx), 0.0)))
         f = disp_frac[:, p, None, None]
         z = plane_z[:, p, None, None]
         tol = plane_tol[:, p, None, None]
         d = ws.blend(gathered[0][2], gathered[1][2], f)
-        survivors += int((tested & ws.sweep_pretest(
-            gathered[0][2], gathered[1][2], f, z, tol)).sum())
+        survivors += (tested & ws.sweep_pretest(
+            gathered[0][2], gathered[1][2], f, z, tol)).sum()
         hit = tested & (torch.abs(d - z) < tol) & (d > 1e-3)
-        for idx, reads, _ in gathered:
-            depth_reads.scatter_add_(2, idx, reads.int())
-            payload_reads.scatter_add_(2, idx, (hit & reads).int())
+        if reads:
+            for idx, read, _ in gathered:
+                depth_reads.scatter_add_(2, idx, read.int())
+                payload_reads.scatter_add_(2, idx, (hit & read).int())
         found |= hit
-    counts = {"tests": tests, "inactive_iterations": inactive,
-              "pretest_survivors": survivors, "hits": int(found.sum()),
+    counts = {"tests": int(tests), "inactive_iterations": int(inactive),
+              "pretest_survivors": int(survivors), "hits": int(found.sum()),
               "pixels": b * h * w}
-    return (tests, counts["hits"], depth_reads > 0, payload_reads > 0,
+    if reads:
+        depth_reads, payload_reads = depth_reads > 0, payload_reads > 0
+    return (counts["tests"], counts["hits"], depth_reads, payload_reads,
             counts)
 
 
@@ -579,7 +678,7 @@ def phase_kernels(gen, dev):
     results = {}
     for tag, args in zip(("main", "anchor"), captured):
         num_planes, pad_left = args[6], args[7]
-        ref = ws.disparity_sweep_plain(*args)
+        plain, ref = gpu_ms_once(lambda: ws.disparity_sweep_plain(*args))
         out = launch(*args)
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(out, ref)]
@@ -590,7 +689,6 @@ def phase_kernels(gen, dev):
                                f"(z, color, found equal: {same}; max abs "
                                f"err {err})")
         ms = gpu_ms(lambda: launch(*args), 20)
-        plain = gpu_ms(lambda: ws.disparity_sweep_plain(*args), 2)
         nbytes, ops32, ops64 = sweep_work(args, num_planes, pad_left)
         bnd, by = bound_ms(nbytes, ops32, ops64)
         shape = (f"B={args[0].shape[0]} H={args[0].shape[1]} "
@@ -617,7 +715,7 @@ def phase_kernels(gen, dev):
         raise RuntimeError(f"expected 1 fused sweep call per step, saw "
                            f"{len(fused)}")
     args = fused[0]
-    ref = ws.disparity_sweep_dual_plain(*args)
+    plain, ref = gpu_ms_once(lambda: ws.disparity_sweep_dual_plain(*args))
     out = launch_dual(*args)
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(out, ref)]
@@ -645,7 +743,6 @@ def phase_kernels(gen, dev):
         raise RuntimeError(f"fused sweep: main surface != single sweep's "
                            f"(z, color, found equal: {main_same})")
     ms = gpu_ms(lambda: launch_dual(*args), 20)
-    plain = gpu_ms(lambda: ws.disparity_sweep_dual_plain(*args), 1)
     nbytes, ops32, ops64 = dual_sweep_work(args)
     bnd, by = bound_ms(nbytes, ops32, ops64)
     shape = (f"B={args[0].shape[0]} H={args[0].shape[1]} "
@@ -782,12 +879,14 @@ def phase_sweep_ablation(calls, dual_args, baseline_csrc=None):
                 planes = a[4:8]
                 r["counts"][bm] = {
                     stream: sweep_stream(depth, *planes, act,
-                                         ws.DUAL_BLOCK_ROWS, a[10], a[11])[4]
+                                         ws.DUAL_BLOCK_ROWS, a[10], a[11],
+                                         reads=False)[4]
                     for stream, depth, act in (("main", a[0], a[8]),
                                                ("edge", a[1], a[9]))}
             else:
                 r["counts"][bm] = sweep_stream(a[0], *a[2:6], a[8],
-                                               ws.BLOCK_ROWS, a[6], a[7])[4]
+                                               ws.BLOCK_ROWS, a[6], a[7],
+                                               reads=False)[4]
 
             def run(a=a, fn=launch[tag]):
                 fn(*a)
@@ -895,7 +994,8 @@ def phase_kernels_attention(gen, dev):
                     q, k, v, ids, sm), 10 if n == WAN_N else 3)
                 r["plain_ms"] = gpu_ms(
                     lambda: bcm.block_causal_attention_plain(
-                        q, k, v, ids, sm), 2 if n == WAN_N else 1)
+                        q, k, v, ids, sm), 2 if n == WAN_N else 1,
+                    warm=False)
                 r["bound_ms"], r["bound_by"], r["bytes"], r["ops"] = \
                     attention_bound(ids, h, d)
                 # SDPA with the boolean (N, N) mask, PyTorch's own choice of
@@ -1010,7 +1110,7 @@ def phase_kernels_packed(dev):
                     qkv4, valid, h, sm), 3 if cross else 10)
                 r["plain_ms"] = gpu_ms(
                     lambda: apk.packed_flash_attention_plain(
-                        qkv4, valid, h, sm), 1)
+                        qkv4, valid, h, sm), 1, warm=False)
                 nbytes, ops = packed_work(valid, b, h, d, 2)
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, \
                     ops / BF16_TC_OPS_PER_S
@@ -1284,11 +1384,13 @@ def phase_da3(dev, zero_counts, counts):
     return res, eng, frames
 
 
-def phase_movie(dev, zero_counts, expect_counts, card):
+def phase_movie(dev, zero_counts, expect_counts, card, keep_dir=None):
     """``mdvt-torch movie`` file to file at its defaults on a synthetic
     1080p clip of two 16-frame scenes (the second with its channels
     reversed: a hard cut for the scene detector). -> (source frames/s,
-    each step's wall time in s, disparity-sweep launches)"""
+    each step's wall time in s, disparity-sweep launches). ``keep_dir``: a
+    directory that receives the scene CSV and each scene's clip, depth,
+    mask, convergence, SBS and infill-mask files (phase 16)."""
     try:
         import cv2  # noqa: F401 - the movie's file I/O needs it
     except ImportError as e:
@@ -1412,6 +1514,14 @@ def phase_movie(dev, zero_counts, expect_counts, card):
         sbs = os.path.join(out_dir, "scene_2.mkv_depth.mkv_stereo.mkv")
         with vio.VideoReader(sbs) as r:
             unfilled = r.read_frame(n - 1)
+        if keep_dir is not None:
+            import shutil
+            for name in os.listdir(out_dir):
+                if name.endswith(".csv") or (name.startswith("scene_") and (
+                        name.endswith((".mkv", "_depth.mkv", "_mask.mkv",
+                                       "_convergence_depths.json",
+                                       "_stereo.mkv", "_infillmask.mkv")))):
+                    shutil.copy(os.path.join(out_dir, name), keep_dir)
         filled = float(np.any(last != unfilled, axis=-1).mean())
         diffusion = movie_diffusion_resume(clip, out_dir, final, n, dev,
                                            zero_counts, expect_counts)
@@ -1583,7 +1693,7 @@ def phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts, expect_counts,
 
     n = SVD_PROD_FRAMES
     sbs, sbs_mask, frames = sbs[:n], sbs_mask[:n], frames[:n]
-    hole = np.any(sbs_mask != 0, axis=-1)
+    hole = channel_any(sbs_mask)
     reach = halo_reach(sbs_mask, dev)
     runs = (
         ("a production", ["--infill_engine", "diffusion"], n,
@@ -1664,12 +1774,11 @@ def phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts, expect_counts,
                 keep &= ~reach[:t]
             source = np.array([ctx.get(i, i) for i in range(t)])
             keep &= ~hole[source]
-            if not np.array_equal(got[keep], sbs[source][keep]):
+            if not same_where(got, sbs[source], keep):
                 raise RuntimeError(f"svd_infill {tag}: pixels outside the "
                                    f"holes{' and the halo band' * halo} "
                                    f"changed")
-            changed = float((got[hole[:t]] != sbs[:t][hole[:t]]).any(
-                -1).mean())
+            changed = changed_share(got, sbs[:t], hole[:t])
             if not changed > 0.5:
                 raise RuntimeError(f"svd_infill {tag}: only {changed:.3f} "
                                    f"of hole pixels changed")
@@ -1844,12 +1953,20 @@ def phase_reference_da3(dev):
                            "CPU's")
 
 
-def infill_engine(dev, chunk=INFILL_FRAMES):
+def wan_cut():
+    """WAN_1_3B with its depth cut to WAN_LAYERS DiT blocks."""
+    import dataclasses
+
     from metric_depth_video_toolbox_tpu_torch.models import wan as wan_mod
+
+    return dataclasses.replace(wan_mod.WAN_1_3B, layers=WAN_LAYERS)
+
+
+def infill_engine(dev, chunk=INFILL_FRAMES):
     from metric_depth_video_toolbox_tpu_torch.pipeline import \
         infill_diffusion as idf
 
-    eng, drv = idf.make_engine("inspatio_world", cfg=wan_mod.WAN_1_3B,
+    eng, drv = idf.make_engine("inspatio_world", cfg=wan_cut(),
                                device=dev, chunk=chunk)
     return eng, {k: drv[k] for k in ("mirror_left", "drift_correct",
                                       "apply_edge_blending")}
@@ -1866,7 +1983,7 @@ def phase_infill(eng, drv, sbs, mask_rgb, mono, dev):
     from metric_depth_video_toolbox_tpu_torch.pipeline import \
         infill_diffusion as idf
 
-    hole = np.any(mask_rgb != 0, axis=-1)
+    hole = channel_any(mask_rgb)
     finite = []
     eng.on_latents = lambda z: finite.append(bool(torch.isfinite(z).all()))
     try:
@@ -1884,13 +2001,14 @@ def phase_infill(eng, drv, sbs, mask_rgb, mono, dev):
     if finite != [True, True]:
         raise RuntimeError(f"infill: sampler latents finite per eye: "
                            f"{finite}")
-    if not np.array_equal(out[~hole], sbs[~hole]):
+    if not same_where(out, sbs, ~hole):
         raise RuntimeError("infill: pixels outside the holes changed")
-    changed = float((out[hole] != sbs[hole]).any(-1).mean())
+    changed = changed_share(out, sbs, hole)
     if not changed > 0.5:
         raise RuntimeError(f"infill: only {changed:.3f} of hole pixels "
                            f"were filled")
-    log(f"[infill] WAN_1_3B bf16, 2 eyes x {n} frames 1080x1920 -> 480x832 "
+    log(f"[infill] WAN_1_3B widths, {WAN_LAYERS} of 30 blocks, bf16, 2 eyes "
+        f"x {n} frames 1080x1920 -> 480x832 "
         f"(padded to {wan_mod.pad_to_valid_t(n)} frames, "
         f"{wan_mod.latent_frames(wan_mod.pad_to_valid_t(n))} latent "
         f"frames, {WAN_N} tokens): {dt:.3f} s, {2 * n / dt:.3f} eye-frames/s"
@@ -2751,10 +2869,11 @@ def phase_checkpoints(frames, sbs, sbs_mask, da3_frames, depth_fps, da3_fps,
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (c) {"dit", "enc", "dec"} at WAN_1_3B (WAN_TINY past the cutoff)
+        # (c) {"dit", "enc", "dec"} at WAN_1_3B's widths and phase 5's depth
+        # (WAN_TINY past the cutoff)
         elapsed = time.perf_counter() - t_script
         tiny = elapsed > CKPT_WAN_CUTOFF_S
-        cfg = wan_mod.WAN_TINY if tiny else wan_mod.WAN_1_3B
+        cfg = wan_mod.WAN_TINY if tiny else wan_cut()
         sd = upstream_state_dict(wan_shapes(cfg), gen, dev)
         pth = os.path.join(tmp, "wan.pth")
         _, t_pth = timed(torch.save, sd, pth)
@@ -2771,7 +2890,8 @@ def phase_checkpoints(frames, sbs, sbs_mask, da3_frames, depth_fps, da3_fps,
         path = os.path.join(tmp, "inspatio_world.msgpack")
         _, t_write = timed(convert.save_checkpoint, path, tree)
         written[path] = tree
-        r = {"model": "WAN_TINY" if tiny else "WAN_1_3B",
+        r = {"model": "WAN_TINY" if tiny else
+             f"WAN_1_3B widths, {WAN_LAYERS} of 30 blocks",
              "parameters": sum(int(np.prod(np.shape(v)))
                                for _, v in tree_leaves(tree)),
              "bytes": os.path.getsize(path), "torch_save_s": t_pth,
@@ -2791,14 +2911,16 @@ def phase_checkpoints(frames, sbs, sbs_mask, da3_frames, depth_fps, da3_fps,
             argv += ["--model_scale", "tiny"]
         # the preset pads a shorter clip to its 225-frame chunk (88,920
         # tokens, minutes per eye at WAN_1_3B): cut to the clip, as phase 5
-        # cuts it to 40
+        # cuts it to 40; the command builds WAN_1_3B, here at phase 5's depth
         preset = idf.ENGINE_PRESETS["inspatio_world"]
-        full_chunk = preset["chunk"]
+        full_chunk, full_cfg = preset["chunk"], wan_mod.WAN_1_3B
         preset["chunk"] = n
+        if not tiny:
+            wan_mod.WAN_1_3B = cfg
         try:
             _, r["infill_cli_s"] = timed(cli.main, argv)
         finally:
-            preset["chunk"] = full_chunk
+            preset["chunk"], wan_mod.WAN_1_3B = full_chunk, full_cfg
         r["launches"] = counts()
         tl = wan_mod.latent_frames(wan_mod.pad_to_valid_t(n))
         blocks = -(-tl // cfg.block_frames)
@@ -2812,9 +2934,9 @@ def phase_checkpoints(frames, sbs, sbs_mask, da3_frames, depth_fps, da3_fps,
                                f"{cfg.layers} layers)")
         with vio.VideoReader(src + "_infilled.mkv") as rd:
             got = rd.read_all()
-        hole = np.any(sbs_mask[:n] != 0, axis=-1)
-        if got.shape != sbs[:n].shape or not np.array_equal(
-                got[~hole], sbs[:n][~hole]):
+        hole = channel_any(sbs_mask[:n])
+        if got.shape != sbs[:n].shape or not same_where(
+                got, sbs[:n], ~hole):
             raise RuntimeError("checkpoints (c): the infilled video's shape "
                                "or its pixels outside the holes are wrong")
         cut = (f"; cut to WAN_TINY: the script had run {elapsed:.1f} s "
@@ -3228,6 +3350,11 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
 # ------------------------------------------------ phase: single_frame ----
 
 SF_FRAMES = 16          # phase 3's first 16 frames: one batch of 16
+# (a) DepthPro-L's three DINOv2 ViT-L towers at their widths with their
+# depth cut to 12 of 24 blocks (its hooks read blocks 5 and 11; 24 until
+# PR 15, when the script outgrew its 1200 s). UniDepth-V2 and UniK3D keep
+# their 24: at 12 the seeded UniK3D's depth is all zero.
+SF_DEPTHPRO_VIT_DEPTH = 12
 SF_DEPTHPRO_FRAMES = 4  # (a) DepthPro-L: one micro-batch (its file's load
                         # and the codecs hold its wall, not the frames)
 SF_MOVIE_FRAMES = 16    # (f): the movie's step 2 on one scene (40 until PR 14)
@@ -3309,7 +3436,8 @@ def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
     """The single-frame engines (after the earlier phases' models are
     freed), file to file through cli/main.py on phase 3's first 16 1080p
     frames: (a) ``engine moge``, ``unik3d``, ``unidepth --xfov 60`` and
-    ``depthpro`` at their _L presets with ``--checkpoint`` on a file
+    ``depthpro`` at their _L presets (DepthPro's towers at
+    SF_DEPTHPRO_VIT_DEPTH blocks) with ``--checkpoint`` on a file
     converted from a seeded upstream-layout state dict (each: wall,
     frames/s, peak memory, the xfovs range, one batch under torch.profiler;
     no kernel of the repo: SDPA); (b) the stand-ins at the CLI's defaults
@@ -3382,6 +3510,9 @@ def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
             vio.save_rgb_video(clip16, clip, 24)
 
             # (a) the real graphs from converted files
+            depthpro_cut = dataclasses.replace(
+                depthpro.DEPTHPRO_L, vit=dataclasses.replace(
+                    depthpro.DEPTHPRO_L.vit, depth=SF_DEPTHPRO_VIT_DEPTH))
             real = (("moge", "moge", moge.MOGE_L,
                      moge_shapes(moge.MOGE_L, n_tok), []),
                     ("unik3d", "unik3d", unidepth.UNIDEPTH_L,
@@ -3390,8 +3521,8 @@ def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
                     ("unidepth", "unidepth", unidepth.UNIDEPTH_L,
                      unidepth_shapes(unidepth.UNIDEPTH_L, n_tok),
                      ["--xfov", "60"]),
-                    ("depthpro", "depthpro_hf", depthpro.DEPTHPRO_L,
-                     depthpro_hf_shapes(depthpro.DEPTHPRO_L), []))
+                    ("depthpro", "depthpro_hf", depthpro_cut,
+                     depthpro_hf_shapes(depthpro_cut), []))
             moge_tree = None
             for name, kind, cfg, shapes, extra in real:
                 t0 = time.perf_counter()
@@ -3425,9 +3556,16 @@ def phase_single_frame(frames, sbs, dev, zero_counts, counts, expect_counts,
                 if m_run != n:
                     clip_run = os.path.join(tmp, f"clip{m_run}.mkv")
                     vio.save_rgb_video(clip16[:m_run], clip_run, 24)
-                wall, peak = command(f"(a) {name}", [
-                    "engine", name, "--color_video", clip_run,
-                    "--checkpoint", ckpt, "--model_size", "vitl", *extra])
+                full_depthpro = depthpro.DEPTHPRO_L
+                if name == "depthpro":      # the engine's DEPTHPRO_L: cut
+                    depthpro.DEPTHPRO_L = cfg
+                try:
+                    wall, peak = command(f"(a) {name}", [
+                        "engine", name, "--color_video", clip_run,
+                        "--checkpoint", ckpt, "--model_size", "vitl",
+                        *extra])
+                finally:
+                    depthpro.DEPTHPRO_L = full_depthpro
                 eng = built[0]
                 if eng.graph is None or eng.graph[0] != name:
                     raise RuntimeError(f"single_frame (a) {name}: the "
@@ -4345,7 +4483,7 @@ def phase_depth_engines(metric, frames, dev, zero_counts, expect_counts,
 
 # --- phase 14: tracking, pose and flow ---------------------------------------
 
-TR_FRAMES = 40          # phase 3's clip: track, align, slam
+TR_FRAMES = 24          # phase 3's first 24 frames: track, align, slam
 TR_FLOW_FRAMES = 16     # (c): flow on the first 16 frames at batch 4
 TR_PROFILE_FRAMES = 8   # (a): the LK clip profiled on its first 8 frames
 TR_SEED = 14
@@ -4976,7 +5114,7 @@ def phase_tracking(metric, frames, dev, zero_counts, expect_counts, card,
 
 # --- phase 15: export, analysis, the viewer and the GUI ----------------------
 
-EV_FRAMES = 40          # phase 3's clip, as phase 14's
+EV_FRAMES = TR_FRAMES   # phase 3's clip, as phase 14's
 EV_VIEW_FRAMES = 8      # (c): the frames fetched from the viewer
 EV_GUI_FRAMES = 12      # (d): the GUI project's one scene
 EV_TURNTABLE = (72, 480, 640)   # --show_scene_point_clouds: frames, h, w
@@ -5023,9 +5161,9 @@ def same_viewer_frames(tag, card_blob, cpu_blob):
 def phase_export_view(metric, frames, dev, zero_counts, expect_counts, card,
                       inputs=None):
     """Export, analysis, the interactive viewer and the GUI (ROADMAP A15)
-    through cli/main.py and their servers on phase 3's 40-frame 1080p clip
-    (its depth mapped onto 1-30 m, as phases 11 and 14), with phase 14's
-    LK tracks and ``slam`` poses (``inputs``: phase 14's ``keep``
+    through cli/main.py and their servers on phase 3's first EV_FRAMES
+    1080p frames (its depth mapped onto 1-30 m, as phases 11 and 14), with
+    phase 14's LK tracks and ``slam`` poses (``inputs``: phase 14's ``keep``
     directory; without it the clip and its depth are written and ``track``
     and ``slam`` run here first): (a) ``export`` with ``--triangulate
     --save_rescaled_depth``, the same with ``--global_align``,
@@ -5391,8 +5529,239 @@ def phase_export_view(metric, frames, dev, zero_counts, expect_counts, card,
     return res
 
 
+# --- phase 16: multi-GPU and the scene scheduler ----------------------------
+
+PA_TRAIN_SIZE = "vits"         # (b): the flagship Depth-Anything ViT-S,
+PA_TRAIN_HW = (518, 518)       # 8 images of 518 x 518
+PA_TRAIN_BATCH = 8
+PA_VDA_SIZE = "vits"           # (c)
+PA_TRAIN_STEPS = 5
+PA_TRAIN_SEED = 16
+PA_LR = 1e-4
+# (b) card vs CPU at the preset's bfloat16 (TF32 off): step 1's loss
+# within PA_LOSS_RTOL relative; the parameter checksum (the float64 sum of
+# every parameter after step 1) within PA_CHECKSUM_SHARE * lr * the
+# parameter count of the CPU's (AdamW's first step moves each element by
+# about lr * sign(g): as if at most 5% of the elements took the other sign)
+PA_LOSS_RTOL = 2e-2
+PA_CHECKSUM_SHARE = 0.1
+PA_VDA_FRAMES = 16             # (c): phase 3's first 16 frames
+PA_INFILL_FRAMES = 8           # (c): one DIFFUSION_TINY chunk of 8
+# (c) a frame mesh of two replicas on one card against no mesh, bfloat16:
+# metric depth's mean absolute difference (the JAX package's sharded VDA
+# bound, tests/test_parallel.py) and its largest as a share of max_depth;
+# the chunk's uint8 frames within 2 LSB (the JAX package's bound)
+PA_VDA_MEAN = 1e-2
+PA_VDA_MAX_SHARE = 1e-2
+PA_INFILL_LSB = 2
+
+
+def _decoded(path):
+    from metric_depth_video_toolbox_tpu_torch.io import video as vio
+    return vio.read_video_frames(path)[0]
+
+
+def phase_parallel(frames, sbs, sbs_mask, kept, movie_steps, dev,
+                   zero_counts, expect_counts, card):
+    """A16 on the card: (a) the movie's step 5 on two worker threads over
+    phase 7's scenes, (b) the DP x TP train step at full width on a mesh of
+    one NCCL rank, held against the same step on the CPU, (c) the VDA and
+    diffusion engines over a frame mesh of two replicas on this card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.models import \
+        depth_anything as da
+    from metric_depth_video_toolbox_tpu_torch.models import diffusion as dif
+    from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
+    from metric_depth_video_toolbox_tpu_torch.parallel import mesh as pm
+    from metric_depth_video_toolbox_tpu_torch.parallel import sharding
+    from metric_depth_video_toolbox_tpu_torch.parallel import train
+    from metric_depth_video_toolbox_tpu_torch.pipeline import depth as dstage
+    from metric_depth_video_toolbox_tpu_torch.pipeline import \
+        infill_diffusion as idf
+    from metric_depth_video_toolbox_tpu_torch.pipeline import movie, scenes
+
+    res = {}
+    # (a) step 5 of phase 7's scenes on 2 threads, against phase 7's files
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = [n for n in os.listdir(kept) if n.endswith(".csv")][0]
+        rows = scenes.read_scene_csv(os.path.join(kept, csv))
+        for name in os.listdir(kept):
+            if not name.endswith(("_stereo.mkv", "_infillmask.mkv",
+                                  "_infilled.mkv")):
+                shutil.copy(os.path.join(kept, name), tmp)
+        todo = movie.plan_scene_files(rows, tmp)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        movie.step5_render_sbs(todo, xfov=60.0, max_depth=100.0,
+                               batch_size=MOVIE_BATCH, parallel=2,
+                               device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batches = 2 * -(-MOVIE_SCENE_FRAMES // MOVIE_BATCH)
+        expect_counts("movie --parallel 2, step 5",
+                      {"disparity_sweep": 2 * batches},
+                      f"as phase 7's step 5: {batches} stereo batches x "
+                      f"main + anchor sweep, from 2 worker threads")
+        for scene in todo:
+            for key in ("sbs", "sbs_infill"):
+                ref = os.path.join(kept, os.path.basename(scene[key]))
+                if not np.array_equal(_decoded(scene[key]), _decoded(ref)):
+                    raise RuntimeError(f"parallel (a): {scene[key]} differs "
+                                       f"from phase 7's serial render")
+    res["step5"] = {"threads_s": wall, "serial_s": movie_steps["5 stereo"],
+                    "cpus": os.cpu_count(), "b1_launches": 2 * batches}
+    log(f"[parallel] ({card}) (a) movie --parallel 2, step 5 on phase 7's "
+        f"2 x {MOVIE_SCENE_FRAMES}-frame {W}x{H} scenes: {wall:.3f} s on 2 "
+        f"threads against phase 7's serial step 5 "
+        f"{movie_steps['5 stereo']:.3f} s ({os.cpu_count()} host CPUs); "
+        f"SBS and infill-mask frames equal to phase 7's")
+
+    # (b) the train step, ViT-S Depth-Anything metric at 518, batch 8
+    cfg = da.preset(PA_TRAIN_SIZE, metric=True, max_depth=20.0)
+    hw = PA_TRAIN_HW
+    cpu_model = da.DepthAnything(cfg, hw)
+    vit_mod.seeded_init(cpu_model, torch.Generator().manual_seed(
+        PA_TRAIN_SEED), cfg.vit.layerscale_init)
+    model = da.DepthAnything(cfg, hw)
+    model.load_state_dict(cpu_model.state_dict())
+    model.to(dev)
+    gen = torch.Generator().manual_seed(PA_TRAIN_SEED + 1)
+    images = torch.rand((PA_TRAIN_BATCH,) + hw + (3,), generator=gen)
+    depth = 1.0 + 19.0 * torch.rand((PA_TRAIN_BATCH,) + hw, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    zero_counts()
+    mesh = pm.make_mesh(device=dev)
+    step = train.sharded_train_step(mesh, model, train.make_optimizer(PA_LR))
+    torch.cuda.reset_peak_memory_stats()
+    x, y = images.to(dev), depth.to(dev)
+    losses, times = [], []
+    for i in range(PA_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if i == 0:
+            card_sum = sum(float(p.double().sum()) for p in
+                           sharding.gather_params(model).values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_counts("train step", {}, "autograd through SDPA and the plain "
+                  "modules: no kernel of the port has a backward")
+    del step, model, x, y
+    t0 = time.perf_counter()
+    cpu_loss = float(train.make_train_step(
+        cpu_model, train.make_optimizer(PA_LR))(images, depth))
+    cpu_s = time.perf_counter() - t0
+    cpu_sum = sum(float(p.detach().double().sum())
+                  for p in cpu_model.parameters())
+    del cpu_model
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"parallel (b): losses {losses}")
+    loss_err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    sum_err = abs(card_sum - cpu_sum) / (PA_LR * n_params)
+    if loss_err > PA_LOSS_RTOL or sum_err > PA_CHECKSUM_SHARE:
+        raise RuntimeError(f"parallel (b): card vs CPU: step 1 loss "
+                           f"{losses[0]} vs {cpu_loss} (rel {loss_err}), "
+                           f"checksum {card_sum} vs {cpu_sum} ({sum_err} "
+                           f"of lr x {n_params} parameters)")
+    ms = [1e3 * t for t in times[1:]]
+    res["train"] = {"model": f"Depth-Anything {PA_TRAIN_SIZE} metric "
+                             f"(its preset, {cfg.vit.dtype})",
+                    "batch": PA_TRAIN_BATCH,
+                    "hw": list(hw), "mesh": list(mesh.shape),
+                    "params": n_params, "ms_per_step": ms,
+                    "first_step_s": times[0], "peak_gib": peak,
+                    "losses": losses, "cpu_step1_loss": cpu_loss,
+                    "cpu_step_s": cpu_s, "loss_rel_err": loss_err,
+                    "checksum_card": card_sum, "checksum_cpu": cpu_sum,
+                    "checksum_err_lr_params": sum_err}
+    log(f"[parallel] ({card}) (b) train step, {res['train']['model']}, "
+        f"{PA_TRAIN_BATCH} x {hw[0]} x {hw[1]}, mesh {tuple(mesh.shape)} "
+        f"({torch.distributed.get_backend()}, one rank), TP plan applied: "
+        f"first step "
+        f"{times[0]:.3f} s, then {np.mean(ms):.3f} ms/step "
+        f"({', '.join(f'{m:.3f}' for m in ms)}), peak {peak:.2f} GiB; "
+        f"losses {', '.join(f'{v:.5f}' for v in losses)}; step 1 on the CPU "
+        f"{cpu_s:.1f} s: loss {cpu_loss:.5f} (rel {loss_err:.2e}), "
+        f"checksum {card_sum:.6f} vs {cpu_sum:.6f} ({sum_err:.4f} of lr x "
+        f"{n_params} parameters)")
+
+    # (c) frame meshes of two replicas on this card, through the seam the
+    # tests use
+    one_card = pm.replicas
+    zero_counts()
+    try:
+        pm.replicas = lambda device: pm.frame_mesh(2, device)
+        eng = dstage.VDAEngine(size=PA_VDA_SIZE, device=dev, rng_seed=0)
+        if eng._mesh != [dev] * 2:
+            raise RuntimeError(f"parallel (c): VDA mesh {eng._mesh}")
+        clip = frames[:PA_VDA_FRAMES]
+        t0 = time.perf_counter()
+        got = eng.infer_video(clip)
+        mesh_s = time.perf_counter() - t0
+        del eng
+        plain = dstage.VDAEngine(size=PA_VDA_SIZE, device=dev, rng_seed=0,
+                                 data_parallel=False)
+        t0 = time.perf_counter()
+        want = plain.infer_video(clip)
+        plain_s = time.perf_counter() - t0
+        del plain
+        d = np.abs(got - want)
+        vda = {"frames": PA_VDA_FRAMES, "mean_abs": float(d.mean()),
+               "max_abs": float(d.max()), "mesh_s": mesh_s,
+               "plain_s": plain_s}
+        if vda["mean_abs"] > PA_VDA_MEAN or \
+                vda["max_abs"] > PA_VDA_MAX_SHARE * 100.0:
+            raise RuntimeError(f"parallel (c): VDA over the frame mesh vs "
+                               f"without: {vda}")
+        eye = (np.ascontiguousarray(sbs[:PA_INFILL_FRAMES, :, W:]),
+               channel_any(sbs_mask[:PA_INFILL_FRAMES, :, W:]))
+        outs = []
+        for dp in (True, False):
+            e = idf.DiffusionInfillEngine(cfg=dif.DIFFUSION_TINY,
+                                          chunk=PA_INFILL_FRAMES,
+                                          data_parallel=dp, device=dev)
+            if (e._mesh is not None) != dp:
+                raise RuntimeError(f"parallel (c): infill mesh {e._mesh}")
+            outs.append(e.infill_chunk(*eye))
+        off = np.abs(outs[0].astype(int) - outs[1].astype(int))
+        infill = {"frames": PA_INFILL_FRAMES, "max_lsb": int(off.max()),
+                  "share_off": float((off > 0).mean())}
+        if infill["max_lsb"] > PA_INFILL_LSB:
+            raise RuntimeError(f"parallel (c): infill over the frame mesh "
+                               f"vs without: {infill}")
+    finally:
+        pm.replicas = one_card
+    n_cards = torch.cuda.device_count()
+    default = dstage.VDAEngine(size=PA_VDA_SIZE, device=dev)._mesh
+    if (default is None) != (n_cards == 1):
+        raise RuntimeError(f"parallel (c): data_parallel=True on "
+                           f"{n_cards} card(s) built the mesh {default}")
+    expect_counts("frame meshes", {}, "VDA and DIFFUSION_TINY: no kernel")
+    res["frame_mesh"] = {"vda": vda, "infill": infill,
+                         "default_mesh_on_this_machine": default is not None}
+    log(f"[parallel] ({card}) (c) frame mesh of 2 replicas on one card: "
+        f"VDA {PA_VDA_SIZE} on {PA_VDA_FRAMES} frames {mesh_s:.3f} s vs "
+        f"{plain_s:.3f} s without, metric depth mean |diff| "
+        f"{vda['mean_abs']:.3e} m, max {vda['max_abs']:.3e} m; "
+        f"DIFFUSION_TINY chunk of {PA_INFILL_FRAMES}: max "
+        f"{infill['max_lsb']} LSB on {infill['share_off']:.5f} of bytes; "
+        f"data_parallel=True on {n_cards} card(s): "
+        f"{'no mesh' if default is None else default}")
+    return res
+
+
 def main():
     t_script = time.perf_counter()
+    # a run still going at WATCHDOG_S prints every thread's stack to the
+    # error stream (once; the run goes on)
+    faulthandler.dump_traceback_later(WATCHDOG_S)
     try:
         import torch
     except ImportError:
@@ -5418,12 +5787,13 @@ def main():
                           "directory and time them beside this checkout's "
                           "(phase 2's bitmap ablation)")
     cli.add_argument("--only", choices=("single_frame", "depth_engines",
-                                        "tracking", "export_view"),
+                                        "tracking", "export_view",
+                                        "parallel"),
                      help="run the build, phases 3-4 (the clip and the SBS "
                           "frames it needs; tracking and export_view: phase "
                           "3 alone, export_view then making its own tracks "
-                          "and poses) and this phase alone; prints no "
-                          "device line")
+                          "and poses; parallel: phases 3, 4 and 7) and this "
+                          "phase alone; prints no device line")
     opts = cli.parse_args()
     baseline_csrc = opts.baseline_csrc
 
@@ -5456,6 +5826,9 @@ def main():
 
     def mark(name):
         phase_end_s[name] = round(time.perf_counter() - t_script, 1)
+        # on the error stream too: its tail shows how far a run got
+        print(f"chip_smoke: phase {name} ended at {phase_end_s[name]} s",
+              file=sys.stderr, flush=True)
     mark("build")
     ptxas = {name: ptxas_report(cuda_build.BUILD_LOG.get(name, ""))
              for name in names}
@@ -5518,6 +5891,23 @@ def main():
         log(json.dumps({"phase_end_s": phase_end_s}))
         log(smi[0])
         return 0
+    if opts.only == "parallel":
+        metric, frames, _ = phase_depth(gen, dev)
+        _, _, sbs, sbs_mask = phase_stereo(metric, frames, gen, dev)
+        mark("depth + stereo")
+        with tempfile.TemporaryDirectory() as kept:
+            _, movie_steps, _, _, _ = phase_movie(dev, zero_counts,
+                                                  expect_counts, smi[0],
+                                                  keep_dir=kept)
+            mark("movie")
+            parallel = phase_parallel(frames, sbs, sbs_mask, kept,
+                                      movie_steps, dev, zero_counts,
+                                      expect_counts, smi[0])
+        mark("parallel")
+        log(json.dumps({"parallel": parallel, "card": smi[0]}))
+        log(json.dumps({"phase_end_s": phase_end_s}))
+        log(smi[0])
+        return 0
     if opts.only == "depth_engines":
         metric, frames, _ = phase_depth(gen, dev)
         phase_stereo(metric, frames, gen, dev)
@@ -5560,7 +5950,7 @@ def main():
     # allocator's growth: one eye once before the measured run
     eng, drv = infill_engine(dev)
     eye = (np.ascontiguousarray(sbs[:, :, W:]),
-           np.any(sbs_mask[:, :, W:] != 0, -1), frames)
+           channel_any(sbs_mask[:, :, W:]), frames)
     t0 = time.perf_counter()
     eng.infill_chunk(*eye)
     torch.cuda.synchronize()
@@ -5570,17 +5960,19 @@ def main():
     zero_counts()
     infill_fps, infill_s, infill_peak = phase_infill(eng, drv, sbs, sbs_mask,
                                                      frames, dev)
-    bc_launches = 2 * 16 * 30
+    bc_launches = 2 * 16 * WAN_LAYERS
     expect_counts("infill", {"block_causal_attention": bc_launches},
-                  "2 eyes x 16 DiT forwards (4 causal blocks x 4 steps) x 30 "
-                  "layers")
+                  f"2 eyes x 16 DiT forwards (4 causal blocks x 4 steps) x "
+                  f"{WAN_LAYERS} blocks")
 
     mark("stereo fused + infill")
     da3_res, da3_eng, da3_frames = phase_da3(dev, zero_counts, counts)
     mark("da3")
 
+    kept_movie = tempfile.TemporaryDirectory()   # phase 7's scenes, for 16
     movie_fps, movie_steps, movie_launches, movie_sweeps, movie_diffusion = \
-        phase_movie(dev, zero_counts, expect_counts, smi[0])
+        phase_movie(dev, zero_counts, expect_counts, smi[0],
+                    keep_dir=kept_movie.name)
     mark("movie")
     svd_infill = phase_svd_infill(sbs, sbs_mask, frames, dev, zero_counts,
                                   expect_counts, smi[0])
@@ -5632,6 +6024,13 @@ def main():
         export_view = phase_export_view(metric, frames, dev, zero_counts,
                                         expect_counts, smi[0], inputs=kept)
     mark("export_view")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with kept_movie:
+        parallel = phase_parallel(frames, sbs, sbs_mask, kept_movie.name,
+                                  movie_steps, dev, zero_counts,
+                                  expect_counts, smi[0])
+    mark("parallel")
 
     def over(r):
         return r["ms"] / r["library_ms"] if r.get("library_ms") else None
@@ -5651,6 +6050,7 @@ def main():
         "movie_launches": movie_launches,
         "touchly1_launches": stereo_paths["touchly1_launches"],
         "gui_launches": export_view["gui"]["launches"],
+        "parallel_step5_launches": parallel["step5"]["b1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in (
             *sweep.values(), *movie_sweeps.values())),
         "ms": main_["ms"], "plain_ms": main_["plain_ms"],
@@ -5749,6 +6149,7 @@ def main():
     log(json.dumps({"depth_engines": depth_engines, "card": smi[0]}))
     log(json.dumps({"tracking": tracking, "card": smi[0]}))
     log(json.dumps({"export_view": export_view, "card": smi[0]}))
+    log(json.dumps({"parallel": parallel, "card": smi[0]}))
     log(json.dumps({"phase_end_s": phase_end_s}))
     log(json.dumps({"kernels": kernels}))
     log(smi[0])

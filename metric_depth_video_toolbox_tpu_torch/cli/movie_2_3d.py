@@ -8,7 +8,8 @@ depthcrafter (after a single-frame reference pass per scene),
 geometrycrafter (on a MoGe prior) or mvsa (which needs a camera track the
 movie has not: the single-frame engine runs instead, with a message).
 ``--quantize int8`` runs the depth stage's ViT matmuls in int8.
-``--parallel`` > 1 raises NotImplementedError naming its ROADMAP item.
+``--parallel N`` (N > 1) renders the scenes' SBS outputs on N worker
+threads.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def build_parser(parser=None):
                         "uses the whole frame)")
     p.add_argument("--batch_size", default=16, type=int)
     p.add_argument("--parallel", default=0, type=int,
-                   help="host IO worker threads (not ported yet beyond 1)")
+                   help="host IO worker threads for the scene renders")
     p.add_argument("--gui", action="store_true",
                    help="this build is headless; points to the project "
                         "manager (mdvt project)")

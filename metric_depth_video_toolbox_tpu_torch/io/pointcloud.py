@@ -102,21 +102,26 @@ def read_ply(path, return_normals=False):
     return pts, cols
 
 
+_OBJ_BLOCK = 1 << 18     # rows formatted per write
+
+
 def write_obj(path, vertices, faces, vertex_colors=None):
     """OBJ triangle mesh; per-vertex colors as the xyzrgb extension."""
     vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
     faces = np.asarray(faces, np.int64).reshape(-1, 3)
+    if vertex_colors is not None:
+        rows = np.concatenate([vertices, np.asarray(
+            vertex_colors, np.float32).reshape(-1, 3)], axis=1)
+        v_line = "v %.6f %.6f %.6f %.4f %.4f %.4f\n"
+    else:
+        rows, v_line = vertices, "v %.6f %.6f %.6f\n"
     with open(path, "w", encoding="ascii") as f:
-        if vertex_colors is not None:
-            vc = np.asarray(vertex_colors, np.float32).reshape(-1, 3)
-            for v, c in zip(vertices, vc):
-                f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f} "
-                        f"{c[0]:.4f} {c[1]:.4f} {c[2]:.4f}\n")
-        else:
-            for v in vertices:
-                f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
-        for tri in faces + 1:
-            f.write(f"f {tri[0]} {tri[1]} {tri[2]}\n")
+        # Python floats and ints of the rows, a block at a time: the same
+        # text as formatting each numpy scalar, in a fraction of the time
+        for lines, table in ((v_line, rows), ("f %d %d %d\n", faces + 1)):
+            for i in range(0, len(table), _OBJ_BLOCK):
+                f.write("".join(map(lines.__mod__, map(
+                    tuple, table[i:i + _OBJ_BLOCK].tolist()))))
     return path
 
 

@@ -199,13 +199,17 @@ def stitch_windows(window_disps, overlap, total):
 
 @torch.no_grad()
 def infer_video_depth(model, frames_u8, work_hw, out_hw, window=32,
-                      overlap=8, device=None):
+                      overlap=8, device=None, mesh=None):
     """Sliding-window video depth over a clip of any length.
 
     frames_u8: (T, H, W, 3) uint8 numpy or tensor. Returns (T, out_h,
     out_w) float32 relative disparity on ``device`` (resolved as
     :func:`~metric_depth_video_toolbox_tpu_torch.utils.device.resolve_device`
-    does: CUDA unless the CPU is asked for), stitched."""
+    does: CUDA unless the CPU is asked for), stitched.
+
+    ``mesh``: None, or ``model``'s ``parallel.sharding.FrameReplicas``
+    (with its motion modules marked temporal): each window's time axis
+    splits over the replicas."""
     device = resolve_device(device)
     t_total = frames_u8.shape[0]
     overlap = min(overlap, window - 1)
@@ -219,7 +223,7 @@ def infer_video_depth(model, frames_u8, work_hw, out_hw, window=32,
         idx = torch.clamp(torch.arange(s0, s0 + window), max=t_total - 1)
         x = frames[idx].to(device).to(torch.float32).permute(0, 3, 1, 2)
         x = resize_nchw(x / 255.0, work_hw).permute(0, 2, 3, 1)
-        d = model(x)
+        d = model(x) if mesh is None else mesh(lambda m, xs: m(xs), x)
         d = resize_nchw(d[:, None], out_hw)[:, 0]
         disps.append(d[: min(window, t_total - s0)])
     if len(disps) == 1:

@@ -172,11 +172,14 @@ class Attention(nn.Module):
                 qkv.reshape(b, n, 3 * c.num_heads, hd), valid, c.num_heads,
                 1.0 / float(hd) ** 0.5)
             return self.proj(out.reshape(b, n, d))
-        q, k, v = qkv.reshape(b, n, 3, c.num_heads, hd) \
+        # the heads of this block: all of them, or a tensor-parallel
+        # rank's share (parallel.sharding.shard_params)
+        heads = qkv.shape[-1] // (3 * hd)
+        q, k, v = qkv.reshape(b, n, 3, heads, hd) \
             .permute(2, 0, 3, 1, 4).unbind(0)             # (B, H, N, hd)
         mask = None if valid is None else valid[None, None, None, :]
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-        return self.proj(out.transpose(1, 2).reshape(b, n, d))
+        return self.proj(out.transpose(1, 2).reshape(b, n, heads * hd))
 
 
 class Mlp(nn.Module):

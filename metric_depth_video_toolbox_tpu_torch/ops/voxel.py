@@ -15,7 +15,16 @@ def voxel_downsample(points, colors=None, voxel_size=0.01):
     keys = np.floor(pts / voxel_size).astype(np.int64)
     if not len(keys):
         return pts, colors
-    _, inverse = np.unique(keys, axis=0, return_inverse=True)
+    lo = keys.min(axis=0)
+    span = [int(s) for s in keys.max(axis=0) - lo + 1]
+    if span[0] * span[1] * span[2] < 2 ** 62:
+        # one int64 per voxel in the rows' lexicographic order: a 1-D sort
+        # gives the same voxels and order as sorting the rows
+        k = keys - lo
+        _, inverse = np.unique((k[:, 0] * span[1] + k[:, 1]) * span[2]
+                               + k[:, 2], return_inverse=True)
+    else:
+        _, inverse = np.unique(keys, axis=0, return_inverse=True)
     inverse = inverse.reshape(-1)
     n = int(inverse.max()) + 1
     counts = np.bincount(inverse, minlength=n)

@@ -18,6 +18,7 @@ vectors and the activity bitmaps are per batch element.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -34,6 +35,7 @@ PRETEST_SLACK = 2.0 ** -120
 
 # kernel launches by wrapper name; each wrapper adds one per launch
 LAUNCHES = {"disparity_sweep": 0, "disparity_sweep_dual": 0}
+_LOCK = threading.Lock()   # the library's typing and the launch counts
 
 
 def pad_widths(width, max_disparity):
@@ -281,7 +283,7 @@ def disparity_sweep(depth_pad, color_pad, disp_int, disp_frac, plane_z,
         raise RuntimeError(f"disparity_sweep kernel launch failed: CUDA "
                            f"error {rc} (error 1: rows of {wp} columns do "
                            f"not fit in a block's shared memory)")
-    LAUNCHES["disparity_sweep"] += 1
+    _count("disparity_sweep")
     return out_z, out_color, found
 
 
@@ -377,7 +379,7 @@ def disparity_sweep_dual(depth_pad, edepth_pad, shared_pad, extra_pad,
         raise RuntimeError(f"disparity_sweep_dual kernel launch failed: "
                            f"CUDA error {rc} (error 1: rows of {wp} columns "
                            f"do not fit in a block's shared memory)")
-    LAUNCHES["disparity_sweep_dual"] += 1
+    _count("disparity_sweep_dual")
     return outs
 
 
@@ -387,13 +389,21 @@ _SIGNATURES = {"disparity_sweep": (10, 9), "disparity_sweep_dual": (16, 10)}
 
 
 def _library(name="disparity_sweep"):
+    """The kernel's library, its C function typed on first use (under a
+    lock: the movie's scene renders launch from worker threads)."""
     from metric_depth_video_toolbox_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load(name)
-    fn = getattr(lib, f"mdvt_{name}")
-    if fn.restype is not ctypes.c_int or not fn.argtypes:
-        pointers, ints = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
-                       + [ctypes.c_void_p])
+    with _LOCK:
+        lib = cuda_build.load(name)
+        fn = getattr(lib, f"mdvt_{name}")
+        if fn.restype is not ctypes.c_int or not fn.argtypes:
+            pointers, ints = _SIGNATURES[name]
+            fn.argtypes = ([ctypes.c_void_p] * pointers
+                           + [ctypes.c_int] * ints + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _count(name):
+    with _LOCK:
+        LAUNCHES[name] += 1

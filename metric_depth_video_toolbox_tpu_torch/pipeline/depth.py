@@ -27,6 +27,7 @@ and DA3 engines in int8 (``ops/quant.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict
 
@@ -119,17 +120,21 @@ class VDAEngine:
     engine runs the default decode, not the weight-exact one); their
     names are in ``ignored_leaves``. ``fp32`` selects float32 compute
     (default bfloat16).
+
+    ``data_parallel`` (default, as in the JAX package): with more than one
+    card (``parallel.mesh.replicas``) the window's time axis splits over
+    the largest count of them that divides the window (printed when it is
+    fewer): the backbone and the DPT head run per replica on its frames,
+    and each of the head's four motion modules gathers the whole window
+    from every replica before it runs (``parallel.sharding.FrameReplicas``).
+    On one card no mesh is built. The metric anchor runs on ``device``.
     """
 
     def __init__(self, size="vits", input_size=518, window=None,
                  overlap=None, params=None, anchor_params=None, rng_seed=0,
                  metric_anchor_frames=32, max_depth=100.0, fp32=False,
-                 data_parallel=False, quantize=None, rolling_average=0,
+                 data_parallel=True, quantize=None, rolling_average=0,
                  anchor_stride=4, device=None):
-        if data_parallel:
-            raise NotImplementedError("not ported yet: data-parallel "
-                                      "inference over several GPUs "
-                                      "(ROADMAP A16)")
         window = window or vd.VideoDepthConfig.window
         if overlap is None:
             overlap = min(vd.VideoDepthConfig.overlap, max(window // 4, 1))
@@ -156,7 +161,27 @@ class VDAEngine:
         self._anchor_params = anchor_params
         self._seed = rng_seed
         self._models = {}
+        self._replicas = {}
         self.ignored_leaves = []
+        self._mesh = None
+        if data_parallel:
+            from metric_depth_video_toolbox_tpu_torch.parallel import mesh
+            self._mesh = mesh.engine_mesh(self.device, self.cfg.window,
+                                          "window")
+
+    def replicas(self, work_hw):
+        """The video model's ``FrameReplicas`` over the frame mesh at a
+        working resolution, or None without a mesh."""
+        if self._mesh is None:
+            return None
+        work_hw = tuple(work_hw)
+        if work_hw not in self._replicas:
+            from metric_depth_video_toolbox_tpu_torch.parallel import \
+                sharding
+            self._replicas[work_hw] = sharding.FrameReplicas(
+                self.models(work_hw)[0], self._mesh,
+                {vd.TemporalModule: (0,)})
+        return self._replicas[work_hw]
 
     def models(self, work_hw):
         """(video model, anchor model) at a working resolution."""
@@ -189,7 +214,8 @@ class VDAEngine:
         disp = vd.infer_video_depth(model, frames, work_hw, (h, w),
                                     window=self.cfg.window,
                                     overlap=self.cfg.overlap,
-                                    device=self.device)
+                                    device=self.device,
+                                    mesh=self.replicas(work_hw))
         anchor_hw = tuple(disp.shape[1:3])
 
         def anchor_depth(idx):
@@ -291,23 +317,24 @@ class SingleFrameEngine:
     (``rng_seed``). The real DepthPro graph runs ``DEPTHPRO_MICRO_BATCH``
     frames at a time (its float32 decode at 1536 x 1536 holds several GiB
     a frame).
+
+    ``data_parallel`` (default, as in the JAX package): with more than one
+    card (``parallel.mesh.replicas``) the model is replicated on each, the
+    batch rounded to a multiple of their count and each batch split across
+    the replicas; on one card no mesh is built.
     """
 
     DEPTHPRO_MICRO_BATCH = 4
 
     def __init__(self, size="vits", input_size=518, params=None,
                  max_depth=100.0, rng_seed=0,
-                 data_parallel=False, variant="da", xfov=None, yfov=None,
+                 data_parallel=True, variant="da", xfov=None, yfov=None,
                  depthpro_cfg=None, quantize=None, moge_cfg=None,
                  unidepth_cfg=None, device=None):
         from metric_depth_video_toolbox_tpu_torch.models import depthpro
         from metric_depth_video_toolbox_tpu_torch.models import moge
         from metric_depth_video_toolbox_tpu_torch.models import unidepth
 
-        if data_parallel:
-            raise NotImplementedError("not ported yet: data-parallel "
-                                      "inference over several GPUs "
-                                      "(ROADMAP A16)")
         if variant == "unidepth" and xfov is None:
             raise ValueError("unidepth engine requires --xfov (reference "
                              "unidepth_video.py makes FOV mandatory)")
@@ -359,7 +386,12 @@ class SingleFrameEngine:
         self._params = params
         self._seed = rng_seed
         self._models = {}
+        self._replicas = {}
         self.ignored_leaves = []
+        self._mesh = None
+        if data_parallel:
+            from metric_depth_video_toolbox_tpu_torch.parallel import mesh
+            self._mesh = mesh.engine_mesh(self.device)
 
     def model(self, work_hw):
         """The engine's model at a working resolution (built and loaded,
@@ -429,33 +461,33 @@ class SingleFrameEngine:
         return (torch.clamp(d, max=self.max_depth),
                 torch.cat(fovs) if fovs else None)
 
-    def _rays(self, work_hw, b):
+    def _rays(self, work_hw, b, device):
         p = (self.graph[1] if self.graph else self.cfg).vit.patch_size
         gh, gw = work_hw[0] // p, work_hw[1] // p
         rays = torch.from_numpy(da.patch_center_rays(
-            self.xfov, gh, gw, self.yfov)).to(self.device)
+            self.xfov, gh, gw, self.yfov)).to(device)
         return rays.expand(b, gh, gw, 3)
 
     @torch.no_grad()
-    def _step(self, frames, h, w, work_hw):
-        """One batch: uint8 (B, H, W, 3) on the device -> (depth (B, H, W),
-        xfov (B,) or None)."""
+    def _step(self, model, frames, h, w, work_hw):
+        """One batch through ``model`` (the engine's, or a replica): uint8
+        (B, H, W, 3) on its device -> (depth (B, H, W), xfov (B,) or
+        None)."""
         from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
 
-        model = self.model(work_hw)
         kind = self.graph[0] if self.graph else None
         if kind == "depthpro":
             return self._depthpro(model, frames, h, w)
         b = frames.shape[0]
         x = _resize_frames(frames, work_hw)
         if kind == "unidepth":
-            d, _conf, _cam4 = model(x, self._rays(work_hw, b))
+            d, _conf, _cam4 = model(x, self._rays(work_hw, b, x.device))
             d = resize_nchw(torch.clamp(d, 0.0, self.max_depth)[:, None],
                             (h, w))[:, 0]
             return d, torch.full((b,), float(self.xfov), device=d.device)
         cfg = self.cfg
         if cfg.k_condition or cfg.fov_head:
-            rays = (self._rays(work_hw, b) if cfg.k_condition
+            rays = (self._rays(work_hw, b, x.device) if cfg.k_condition
                     and self.xfov is not None else None)
             out = model(x, rays)
         else:
@@ -498,10 +530,25 @@ class SingleFrameEngine:
     def infer_video(self, frames_u8, batch=16, return_fov=False):
         """(T, H, W, 3) uint8 -> (T, H, W) float32 metric depth (numpy);
         with ``return_fov``, also the per-frame xfov (T,) or None. The last
-        batch is padded with its last frame."""
+        batch is padded with its last frame. With a frame mesh, ``batch``
+        is rounded to a multiple of its size, as in the JAX package."""
         t, h, w = frames_u8.shape[:3]
         work_hw = da.working_resolution(h, w, self.input_size,
                                         self.cfg.vit.patch_size)
+        model = self.model(work_hw)
+        step = functools.partial(self._step, h=h, w=w, work_hw=work_hw)
+        if self._mesh is not None:
+            from metric_depth_video_toolbox_tpu_torch.parallel import \
+                sharding
+            n = len(self._mesh)
+            batch = max(batch, n) // n * n
+            if work_hw not in self._replicas:
+                self._replicas[work_hw] = sharding.FrameReplicas(
+                    model, self._mesh)
+            reps = self._replicas[work_hw]
+            run = functools.partial(reps, step)
+        else:
+            run = functools.partial(step, model)
         frames = torch.as_tensor(np.asarray(frames_u8))
         outs, fovs = [], []
         for i in range(0, t, batch):
@@ -510,7 +557,7 @@ class SingleFrameEngine:
             if n < batch:
                 chunk = torch.cat([chunk, chunk[-1:].expand(
                     (batch - n,) + tuple(chunk.shape[1:]))])
-            d, xf = self._step(chunk.to(self.device), h, w, work_hw)
+            d, xf = run(chunk.to(self.device))
             outs.append(d[:n].cpu())
             if xf is not None:
                 fovs.append(xf[:n].to(torch.float32).cpu())
@@ -904,8 +951,11 @@ class MVSEngine:
     cost-volume depth to its refined depth over the confident pixels.
     ``fast_cost_volume``: half the hypotheses (at least 8). ``params``: a
     Flax tree or a port state dict; None draws seeded weights.
-    ``data_parallel`` is accepted for the JAX package's signature; one card
-    runs every batch (several cards: ROADMAP A16)."""
+    ``data_parallel`` (default): with more than one card
+    (``parallel.mesh.replicas``) ``batch`` is rounded to a multiple of
+    their count and each batch's references, sources, poses and
+    validities split across replicas of the model; on one card no mesh is
+    built."""
 
     def __init__(self, size="base", max_depth=100.0, window=7,
                  resize_w=1024, params=None, batch=4, rng_seed=0,
@@ -913,7 +963,6 @@ class MVSEngine:
                  fast_cost_volume=False, device=None, **_):
         from metric_depth_video_toolbox_tpu_torch.models import mvs as mvs_mod
 
-        del data_parallel
         self.cfg = mvs_mod.preset(size, max_depth=max_depth)
         if fast_cost_volume:
             self.cfg = dataclasses.replace(
@@ -927,6 +976,14 @@ class MVSEngine:
         self._params = params
         self._seed = rng_seed
         self._model = None
+        self._replicas = None
+        self._mesh = None
+        if data_parallel:
+            from metric_depth_video_toolbox_tpu_torch.parallel import mesh
+            self._mesh = mesh.engine_mesh(self.device)
+        if self._mesh is not None:
+            n = len(self._mesh)
+            self.batch = max(self.batch, n) // n * n
 
     @property
     def model(self):
@@ -977,6 +1034,13 @@ class MVSEngine:
         c2w = np.asarray(transforms, np.float32)
         w2c = np.stack([np.linalg.inv(t) for t in c2w])
         model = self.model
+        if self._mesh is not None and self._replicas is None:
+            from metric_depth_video_toolbox_tpu_torch.parallel import \
+                sharding
+            self._replicas = sharding.FrameReplicas(model, self._mesh)
+
+        def run(m, refs, srcs, poses, valids):
+            return m(refs, srcs, k_feat.to(refs.device), poses, valids)
         outs = []
         b = self.batch
         for start in range(0, n, b):
@@ -988,10 +1052,12 @@ class MVSEngine:
                 srcs.append(idx)
                 poses.append(np.stack([w2c[j] @ c2w[i] for j in idx]))
                 valids.append(val)
-            out = model(small[ids] / 255.0,
-                        small[torch.tensor(srcs, device=dev)] / 255.0, k_feat,
-                        torch.from_numpy(np.stack(poses)).to(dev),
-                        torch.tensor(valids, device=dev))
+            batch = (small[ids] / 255.0,
+                     small[torch.tensor(srcs, device=dev)] / 255.0,
+                     torch.from_numpy(np.stack(poses)).to(dev),
+                     torch.tensor(valids, device=dev))
+            out = (run(model, *batch) if self._replicas is None
+                   else self._replicas(run, *batch))
             d = out["depth"]
             if self.rescale:
                 s = torch.stack([solvers.median_ratio_scale(

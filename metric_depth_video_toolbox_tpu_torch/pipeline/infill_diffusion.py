@@ -53,8 +53,18 @@ class DiffusionInfillEngine:
     (state dict or Flax tree of ``models.clip.CLIPVisionTower`` at
     ``clip_cfg``, default ``CLIP_VIT_H``) conditions the SVD graph's
     cross-attention on the CLIP embedding of the chunk's first masked
-    frame. ``data_parallel`` is accepted for the JAX package's signature;
-    one card runs the whole chunk (a frame mesh is ROADMAP A16).
+    frame.
+
+    ``data_parallel`` (default, as in the JAX package): with more than one
+    card (``parallel.mesh.replicas``) the chunk's time axis splits over the
+    largest count of them that divides ``chunk`` (printed when it is
+    fewer): the VAE and the denoiser run per replica on its frames, and the
+    layers that mix frames (the UNet's temporal attentions; in the SVD
+    graph its temporal resnet blocks, its spatio-temporal transformers and
+    the decoder's temporal layers) gather the whole chunk from every
+    replica (``parallel.sharding.FrameReplicas``). The noise is drawn on
+    ``device`` from the engine's generator, the same draws with and without
+    a mesh. On one card no mesh is built.
 
     ``on_latents``: None, or a callable that ``infill_chunk`` calls with
     each chunk's sampled latents (T, lh, lw, latent) before they are
@@ -65,7 +75,6 @@ class DiffusionInfillEngine:
                  chunk=25, overlap=6, rng_seed=0, mono_conditioning=False,
                  data_parallel=True, vae_cfg=None, clip_params=None,
                  clip_cfg=None, device=None):
-        del data_parallel
         self.cfg = cfg or dif.DIFFUSION_TINY
         self.vae_cfg = vae_cfg
         self.clip_cfg = clip_cfg
@@ -78,8 +87,12 @@ class DiffusionInfillEngine:
             rng_seed)
         self._params = params
         self._clip_params = clip_params
-        self.model = self.clip = None
+        self.model = self.clip = self._replicas = None
         self.on_latents = None
+        self._mesh = None
+        if data_parallel:
+            from metric_depth_video_toolbox_tpu_torch.parallel import mesh
+            self._mesh = mesh.engine_mesh(self.device, chunk, "chunk")
 
     def _ensure(self):
         if self.model is not None:
@@ -106,6 +119,21 @@ class DiffusionInfillEngine:
             from_jax.load_params(model, self._params)
         self._params = self._clip_params = None
         self.model = dif.store_in_compute_dtype(model).eval()
+        if self._mesh is not None:
+            from metric_depth_video_toolbox_tpu_torch.models import \
+                svd as svdm
+            from metric_depth_video_toolbox_tpu_torch.parallel import \
+                sharding
+            self._replicas = sharding.FrameReplicas(self.model, self._mesh, {
+                dif.TemporalAttention: (0,), svdm.TemporalResnetBlock: (0, 0),
+                svdm.TransformerST: (0, 0), svdm.TimeConv: (2,)})
+
+    def _frames(self, fn, *batches):
+        """``fn(model, *batches)``, split over the frame mesh when there
+        is one."""
+        if self._replicas is None:
+            return fn(self.model, *batches)
+        return self._replicas(fn, *batches)
 
     def num_parameters(self):
         """Parameters of the inpainter (and of the CLIP tower, if any)."""
@@ -126,7 +154,7 @@ class DiffusionInfillEngine:
         when None). ``noise``: the sampler's standard normal draw (T, lh,
         lw, latent), from the engine's generator when None."""
         self._ensure()
-        model, dev = self.model, self.device
+        dev = self.device
         f_dev = torch.as_tensor(np.ascontiguousarray(frames_u8), device=dev)
         m_dev = torch.as_tensor(np.ascontiguousarray(hole_mask), device=dev)
         h, w = f_dev.shape[1:3]
@@ -135,14 +163,15 @@ class DiffusionInfillEngine:
             mw = resize_mask(m_dev, self.work_hw)
             masked = fw * (1.0 - mw[..., None])
             del fw
-            cond_lat = model.encode(masked)
+            cond_lat = self._frames(lambda m, x: m.encode(x), masked)
             # the mask on the latent grid: the antialiased linear shrink
             parts = [cond_lat, im.resize(mw[..., None], cond_lat.shape[1:3])]
             if self.mono_conditioning:
                 mono = (torch.zeros_like(f_dev) if mono_u8 is None else
                         torch.as_tensor(np.ascontiguousarray(mono_u8),
                                         device=dev))
-                parts.append(model.encode(self._to_work(mono)))
+                parts.append(self._frames(lambda m, x: m.encode(x),
+                                          self._to_work(mono)))
             cond = torch.cat(parts, dim=-1)
             ctx = None
             if self.clip is not None:
@@ -156,14 +185,19 @@ class DiffusionInfillEngine:
         if noise is None:
             noise = torch.randn(cond_lat.shape, generator=self.generator,
                                 device=dev)
+        def denoise(zz, s, c):
+            return self._frames(lambda m, z_, c_: m.denoise(
+                z_, s.to(z_.device), c_,
+                None if ctx is None else ctx.to(z_.device)), zz, c)
+
         with record_function("infill.sample"):
-            z = dif.sample(lambda zz, s, c: model.denoise(zz, s, c, ctx),
-                           noise.to(dev), self.cfg, cond)
+            z = dif.sample(denoise, noise.to(dev), self.cfg, cond)
         del cond
         if self.on_latents is not None:
             self.on_latents(z)
         with record_function("infill.decode_composite"):
-            out = im.resize(model.decode(z).float(), (h, w)) * 255.0
+            out = im.resize(self._frames(lambda m, zz: m.decode(zz), z)
+                            .float(), (h, w)) * 255.0
             return _paste(out, f_dev, m_dev).cpu().numpy()
 
 
@@ -193,7 +227,8 @@ class CausalInfillEngine:
 
     def __init__(self, cfg=None, params=None, work_hw=(480, 832),
                  chunk=225, overlap=6, rng_seed=0, mono_conditioning=True,
-                 device=None):
+                 data_parallel=True, device=None):
+        del data_parallel   # one card runs the chunk, as in the JAX package
         self.cfg = cfg or wan_mod.WAN_1_3B
         self.work_hw = tuple(work_hw)
         self.chunk = chunk

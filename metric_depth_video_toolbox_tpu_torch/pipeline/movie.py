@@ -22,8 +22,9 @@ median FOV), ``depthcrafter`` (made metric against a single-frame pass
 written to ``<scene>_ref_depth.mkv`` first) and ``geometrycrafter`` (on a
 MoGe prior); ``mvsa`` needs a camera track, so the single-frame engine runs
 in its place, with the JAX package's message, and an unknown name falls
-back with its warning. ``parallel`` > 1 (scene renders on worker threads)
-raises naming A16.
+back with its warning. ``parallel`` > 1 renders the scenes of step 5 on
+that many worker threads (``parallel.scheduler.run_scenes_threaded``), so
+the host's decode and encode of one scene overlap another's device work.
 
 Every device step runs on ``device`` (CUDA unless the caller asks for the
 CPU). ``STEP_SECONDS`` holds the wall time of each step of the last run.
@@ -220,31 +221,41 @@ def step4_find_convergence(scenes, max_depth=100.0, device=None):
             output=scene["convergence_file"], device=device)
 
 
-def _check_parallel(parallel):
-    if parallel and parallel > 1:
-        raise NotImplementedError("not ported yet: --parallel > 1, scene "
-                                  "renders on worker threads (ROADMAP A16)")
-
-
 def step5_render_sbs(scenes, xfov=None, max_depth=100.0, infill_mask=True,
                      batch_size=8, parallel=0, device=None, **stereo_kwargs):
-    """Render each scene's SBS output (and its infill mask)."""
-    _check_parallel(parallel)
-    for scene in scenes:
-        if scene["finished"] or os.path.exists(scene["sbs"]):
-            continue
+    """Render each scene's SBS output (and its infill mask). With
+    ``parallel`` > 1 and more than one scene to do, the scenes render on
+    ``parallel`` worker threads (one CUDA stream: the device work of the
+    scenes interleaves, their host codecs overlap); every scene runs, and
+    then a ``RuntimeError`` names how many failed and the first error."""
+    todo = [s for s in scenes
+            if not (s["finished"] or os.path.exists(s["sbs"]))]
+
+    def render(scene, gate=None):
         conv = None
         if scene["convergence"] and os.path.exists(scene["convergence_file"]):
             conv = sidecar.load_convergence_depths(scene["convergence_file"])
         xfovs = None
         if os.path.exists(scene["xfovs_file"]):
             xfovs = sidecar.load_xfovs(scene["xfovs_file"])
-        stereo_stage.render_stereo_video(
+        return stereo_stage.render_stereo_video(
             scene["depth_video_file"], color_video=scene["scene_video_file"],
             output=scene["sbs"], xfov=xfov if xfovs is None else None,
             xfovs=xfovs, convergence_depths=conv, max_depth=max_depth,
             infill_mask=infill_mask and scene["infill"],
             batch_size=batch_size, device=device, **stereo_kwargs)
+
+    if parallel and parallel > 1 and len(todo) > 1:
+        from metric_depth_video_toolbox_tpu_torch.parallel import scheduler
+        results = scheduler.run_scenes_threaded(render, todo,
+                                                workers=parallel)
+        errs = [r for _, r in results if isinstance(r, Exception)]
+        if errs:
+            raise RuntimeError(f"{len(errs)} scene renders failed: "
+                               f"{errs[0]}")
+    else:
+        for scene in todo:
+            render(scene)
 
 
 def step6_infill(scenes, infill_engine="basic", device=None):
@@ -385,8 +396,8 @@ def movie_to_3d(color_video, output_dir=None, engine="vda",
                 mask_engine=None, generate_masks=True, csv_delimiter=",",
                 no_render=False, parallel=0, device=None):
     """The full pipeline; returns the final movie's path (None with
-    ``no_render``). Resumable: a second run redoes nothing that exists."""
-    _check_parallel(parallel)
+    ``no_render``). Resumable: a second run redoes nothing that exists.
+    ``parallel`` > 1: step 5's scene renders on that many threads."""
     STEP_SECONDS.clear()
     clock = [time.perf_counter()]
 
@@ -416,7 +427,7 @@ def movie_to_3d(color_video, output_dir=None, engine="vda",
     if no_render:
         return None
     step5_render_sbs(scenes, xfov=xfov, max_depth=max_depth,
-                     batch_size=batch_size, device=device,
+                     batch_size=batch_size, parallel=parallel, device=device,
                      **(stereo_kwargs or {}))
     done("5 stereo")
     step6_infill(scenes, infill_engine=infill_engine, device=device)

@@ -168,7 +168,8 @@ def test_port_parser_accepts_every_reference_flag(command, monkeypatch):
         assert got[opt] == (dest, default), (command, opt)
 
 
-# option values the port does not run yet: (command, argv, ROADMAP item)
+# option values that raised naming a ROADMAP item until it was ported:
+# (command, argv, ROADMAP item)
 UNPORTED_OPTIONS = [
     ("movie", ["--parallel", "2"], "A16"),
 ]
@@ -176,16 +177,18 @@ UNPORTED_OPTIONS = [
 
 @pytest.mark.parametrize("command,argv,item", UNPORTED_OPTIONS)
 def test_unported_options_raise(tmp_path, monkeypatch, command, argv, item):
+    """Each option that raised naming ``item`` reaches the pipeline now:
+    ``movie --parallel 2`` calls ``movie_to_3d`` with ``parallel=2``."""
+    from metric_depth_video_toolbox_tpu_torch.pipeline import movie
+
     monkeypatch.setenv("MDVT_PLATFORM", "cpu")
     clip = str(tmp_path / "clip.mkv")
-    if command == "movie":
-        pytest.importorskip("cv2")
-        tvio.save_rgb_video(np.zeros((16, 24, 32, 3), np.uint8), clip, 24)
-        base = ["movie", "--color_video", clip, "--xfov", "60"]
-    else:
-        base = ["infill", "--sbs_color_video", clip]
-    with pytest.raises(NotImplementedError, match=item):
-        tmain.main(base + argv)
+    seen = {}
+    monkeypatch.setattr(movie, "movie_to_3d",
+                        lambda *a, **kw: seen.update(kw) or "out.mkv")
+    tmain.main(["movie", "--color_video", clip, "--xfov", "60"] + argv)
+    assert command == "movie" and item == "A16"
+    assert seen["parallel"] == int(argv[1])
     for opts in UNPORTED_FLAGS.values():
         assert not set(opts) & set(argv)
 

@@ -151,8 +151,20 @@ def test_slice_encode_and_stereo_match(metric):
 
 
 def test_unported_engine_options_raise():
-    with pytest.raises(NotImplementedError, match="A16"):
-        tdepth.VDAEngine(data_parallel=True, device="cpu")
+    """``data_parallel``, which raised naming ROADMAP A16, defaults to True
+    as in the JAX engine and builds no frame mesh on one device (the mesh
+    itself: test_torch_data_parallel.py)."""
+    import inspect
+
+    for eng in (tdepth.VDAEngine(data_parallel=True, device="cpu"),
+                tdepth.VDAEngine(device="cpu")):
+        assert eng._mesh is None
+    for cls in (tdepth.VDAEngine, tdepth.SingleFrameEngine,
+                tdepth.MVSEngine):
+        assert inspect.signature(cls).parameters[
+            "data_parallel"].default is True
+        assert inspect.signature(getattr(jdepth, cls.__name__)).parameters[
+            "data_parallel"].default is True
 
 
 def test_depth_cli_flags_and_defaults_match():

@@ -289,6 +289,64 @@ def test_export_analysis_viewer_and_gui_run_with_jax_blocked():
     assert res.stdout.strip().endswith("OK")
 
 
+A16 = """
+import sys
+for name in ("jax", "jaxlib", "flax", "msgpack",
+             "metric_depth_video_toolbox_tpu"):
+    sys.modules[name] = None
+import os, tempfile
+import numpy as np, torch
+from metric_depth_video_toolbox_tpu_torch import parallel
+from metric_depth_video_toolbox_tpu_torch.io import sidecar
+from metric_depth_video_toolbox_tpu_torch.io import video as vio
+from metric_depth_video_toolbox_tpu_torch.models import depth_anything as da
+from metric_depth_video_toolbox_tpu_torch.models import vit
+from metric_depth_video_toolbox_tpu_torch.parallel import (mesh, scheduler,
+                                                           sharding, train)
+from metric_depth_video_toolbox_tpu_torch.pipeline import depth, movie
+assert scheduler.shard_scenes(list(range(5)), 1, 2) == [1, 3]
+model = da.DepthAnything(da.preset("vitt", metric=False), (28, 28))
+vit.seeded_init(model, torch.Generator().manual_seed(0), 1.0)
+step = train.sharded_train_step(mesh.make_mesh(device="cpu"), model,
+                                train.make_optimizer())
+loss = step(torch.rand(2, 28, 28, 3), 1.0 + torch.rand(2, 28, 28))
+assert torch.isfinite(loss)
+mesh.replicas = lambda device: mesh.frame_mesh(2, device)
+eng = depth.VDAEngine(size="vitt", input_size=28, window=4, overlap=1,
+                      metric_anchor_frames=2, device="cpu")
+assert len(eng._mesh) == 2
+rng = np.random.default_rng(0)
+assert np.isfinite(eng.infer_video(rng.integers(0, 255, (6, 28, 28, 3),
+                                                dtype=np.uint8))).all()
+with tempfile.TemporaryDirectory() as tmp:
+    scenes = movie.plan_scene_files(
+        [{"Scene Number": str(i), "Length (frames)": "4"} for i in (1, 2)],
+        tmp)
+    for s in scenes:
+        vio.save_rgb_video(rng.integers(0, 255, (4, 24, 32, 3), np.uint8),
+                           s["scene_video_file"], 24)
+        vio.save_depth_video(np.full((4, 24, 32), 3.0, np.float32),
+                             s["depth_video_file"], 24, 100.0)
+    movie.step5_render_sbs(scenes, xfov=60.0, batch_size=2, parallel=2,
+                           device="cpu")
+    assert all(vio.video_info(s["sbs"])[0] == 4 for s in scenes)
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("OK")
+"""
+
+
+def test_parallel_and_threaded_movie_run_with_jax_blocked():
+    """``parallel/``: the scheduler, a train step on a mesh of one gloo
+    rank, the VDA engine over a frame mesh of two CPU replicas, and the
+    movie's step 5 on two worker threads, with the JAX package, JAX, Flax
+    and msgpack unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), MDVT_PLATFORM="cpu")
+    res = subprocess.run([sys.executable, "-c", A16], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("MDVT_PLATFORM", raising=False)

@@ -514,13 +514,26 @@ def test_movie_step6_diffusion_matches_jax(movie_runs, tmp_path,
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"parallel": 2}, "A16")])
-def test_movie_unported_options_raise(tmp_path, kwargs, match):
+def test_movie_unported_options_raise(tmp_path, monkeypatch, kwargs, match):
+    """The option that raised naming ROADMAP ``match`` runs now:
+    ``movie_to_3d(parallel=2)`` hands it to step 5 (the threaded render,
+    held frame for frame against the serial one in
+    test_torch_data_parallel.py)."""
     pytest.importorskip("cv2")
     frames = _clip()[:SCENE]
     clip = str(tmp_path / "c.mkv")
     tvio.save_rgb_video(frames, clip, 24)
-    with pytest.raises(NotImplementedError, match=match):
-        tmovie.movie_to_3d(clip, device="cpu", xfov=60.0, **kwargs)
+    seen = {}
+    for step in ("step2_estimate_depth", "step3_generate_masks",
+                 "step4_find_convergence", "step6_infill"):
+        monkeypatch.setattr(tmovie, step, lambda *a, **kw: None)
+    monkeypatch.setattr(tmovie, "step5_render_sbs",
+                        lambda scenes, **kw: seen.update(kw))
+    monkeypatch.setattr(tmovie, "validate_video_lengths", lambda s: [])
+    monkeypatch.setattr(tmovie, "step7_concat", lambda s, c: "movie_SBS")
+    assert tmovie.movie_to_3d(clip, device="cpu", xfov=60.0,
+                              **kwargs) == "movie_SBS"
+    assert seen["parallel"] == kwargs["parallel"] and match == "A16"
 
 
 @pytest.mark.parametrize("engine,kw,want", [
