@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--baseline-csrc DIR]
-                          [--only single_frame|depth_engines|tracking|
-                                  export_view|parallel]
+                          [--only stereo_paths|single_frame|depth_engines|
+                                  tracking|export_view|parallel]
 
 Run from the repository root on a machine with a CUDA card. Phases, each
 of which fails the run on error:
@@ -155,7 +155,13 @@ of which fails the run on error:
                 passes of whole images); and the batch-8 step on the card
                 and on the CPU for 2 frames (the hole masks may disagree on
                 at most 1% of their union, and at most 0.1% of image bytes
-                may differ by more than 1).
+                may differ by more than 1). Then (i) the plane sweep,
+                ``StereoConfig(warp_method="plane_sweep")`` under the camera
+                path's first transform: one frame's two eyes at 1920x1080,
+                P=128, on the card (wall, peak memory, hole share; counts
+                zeroed before, read after: no launch, it is plain
+                PyTorch), and the same frame resized to 480x270 at P=32 on
+                the card and on the CPU, held by the forward step's gates.
  12. single_frame the single-frame engines (after the earlier phases'
                 models are freed), file to file through cli/main.py on
                 phase 3's first 16 frames: (a) ``engine moge``, ``unik3d``,
@@ -3006,6 +3012,8 @@ SP_BG_FRAMES = 10       # (f) the save runs to the first downsample
 SP_BATCH = 16           # the stereo CLI's default batch
 SP_NEAR, SP_FAR = 1.0, 30.0     # the clip's depth range, metres
 SP_4K = (2160, 3840)    # the forward step at the default batch: peak memory
+SP_PLANES = 128         # (i) the plane sweep at 1080p: the CLI's planes
+SP_SMALL = (270, 480, 32)   # (i) card vs CPU: a quarter of the size, P=32
 
 
 def camera_path(n, seed=21):
@@ -3040,6 +3048,105 @@ def film_depth(metric, near=SP_NEAR, far=SP_FAR):
             ).astype(np.float32)
 
 
+def card_vs_cpu(card_out, cpu_out):
+    """Image bytes differing, differing by more than 1, and the hole masks'
+    disagreement over their union, of one step's card and CPU outputs
+    (uint8 numpy) -> (differ, differ_1, off, union, hole share)."""
+    import numpy as np
+
+    diff = np.abs(card_out["image"].astype(np.int16)
+                  - cpu_out["image"].astype(np.int16))
+    holes = [o["infill_mask"].max(-1) > 0 for o in (card_out, cpu_out)]
+    union = int((holes[0] | holes[1]).sum())
+    return (float(np.mean(diff > 0)), float(np.mean(diff > 1)),
+            float((holes[0] != holes[1]).sum() / max(union, 1)), union,
+            float(holes[0].mean()))
+
+
+def check_card_vs_cpu(what, differ_1, off, union):
+    """The forward step's gates: the hole masks may disagree on at most 1%
+    of their union, at most 0.1% of image bytes may differ by more than
+    1."""
+    if not union or off > 0.01 or differ_1 > 0.001:
+        raise RuntimeError(f"stereo_paths: {what} card vs CPU: hole masks "
+                           f"disagree on {off:.4%} of their union of "
+                           f"{union} (limit 1%), {differ_1:.4%} of image "
+                           f"bytes differ by more than 1 (limit 0.1%)")
+
+
+def plane_sweep_check(metric, frames, tf, dev, zero_counts, expect_counts,
+                      card):
+    """(i) ``StereoConfig(warp_method="plane_sweep")``: one frame's two
+    eyes under the transform ``tf`` at 1080p and SP_PLANES planes on the
+    card, twice (the first pays the allocator's growth); then the frame
+    resized to SP_SMALL on the card and on the CPU, held by the forward
+    step's gates. -> numbers"""
+    import torch
+
+    from metric_depth_video_toolbox_tpu_torch.ops import codec
+    from metric_depth_video_toolbox_tpu_torch.ops import image as im
+    from metric_depth_video_toolbox_tpu_torch.pipeline import stereo
+
+    def inputs(depth, color, device):
+        args = stereo_inputs(codec.encode_depth_frame(
+            torch.as_tensor(depth, device=device), 100.0),
+            torch.as_tensor(color, device=device))
+        return args[:3] + (torch.as_tensor(tf, device=device)[None],) \
+            + args[4:]
+
+    def config(h, w, planes):
+        return stereo.StereoConfig(width=w, height=h, make_infill_mask=True,
+                                   warp_method="plane_sweep",
+                                   num_planes=planes)
+
+    t_check = time.perf_counter()
+    cfg = config(H, W, SP_PLANES)
+    args = inputs(metric[:1], frames[:1], dev)
+    zero_counts()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = stereo.stereo_step(cfg, *args)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hole = float((out["infill_mask"].max(-1) > 0).mean())
+    if out["image"].shape != (1, H, 2 * W, 3) or not 0.0 < hole < 0.5:
+        raise RuntimeError(f"stereo_paths (i) plane sweep: image "
+                           f"{out['image'].shape}, hole share {hole}")
+    res = {"wall_s": walls[1], "first_wall_s": walls[0], "peak_gib": peak,
+           "hole_share": hole}
+    log(f"[stereo_paths] ({card}) (i) plane sweep, 1 frame x 2 eyes at "
+        f"{W}x{H}, P={SP_PLANES}, camera path, infill mask: "
+        f"{walls[1]:.3f} s ({walls[0]:.3f} s the first call), peak "
+        f"{peak:.2f} GiB, hole share {hole:.4f}")
+    del out, args
+
+    h, w, planes = SP_SMALL
+    depth = im.resize(torch.as_tensor(metric[:1])[..., None], (h, w))[..., 0]
+    color = torch.round(im.resize(torch.as_tensor(frames[:1]).to(
+        torch.float32), (h, w))).clamp(0, 255).to(torch.uint8)
+    small = config(h, w, planes)
+    card_out = stereo.stereo_step(small, *inputs(depth, color, dev))
+    expect_counts("stereo_paths (i) plane sweep", {},
+                  "the plane sweep is plain PyTorch: no kernel of the repo")
+    cpu_out = stereo.stereo_step(small, *inputs(depth, color, "cpu"))
+    differ, differ_1, off, union, share = card_vs_cpu(card_out, cpu_out)
+    res["card_vs_cpu"] = {"bytes_differing": differ,
+                          "bytes_differing_by_more_than_1": differ_1,
+                          "hole_disagreement_of_union": off,
+                          "hole_share": share}
+    log(f"[stereo_paths] (i) plane sweep, 1 frame at {w}x{h}, P={planes}, "
+        f"card vs CPU: {differ:.5%} of image bytes differ, {differ_1:.5%} "
+        f"by more than 1; the hole masks disagree on {off:.5%} of their "
+        f"union ({union} pixels; hole share {share:.4f})")
+    check_card_vs_cpu("(i) plane sweep", differ_1, off, union)
+    res["s"] = time.perf_counter() - t_check
+    log(f"[stereo_paths] ({card}) (i) plane sweep: {res['s']:.3f} s")
+    return res
+
+
 def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
                        card):
     """The general stereo renderer and the novel-view render, file to file
@@ -3059,7 +3166,7 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
     whose peak memory the z-buffer's passes bound; and the batch-8 step on
     the card and on the CPU for 2 frames: the hole masks must disagree on
     at most 1% of their union, and at most 0.1% of image bytes may differ
-    by more than 1. -> numbers"""
+    by more than 1. Then (i), :func:`plane_sweep_check`. -> numbers"""
     try:
         import cv2  # noqa: F401 - the commands read and write video files
     except ImportError as e:
@@ -3323,25 +3430,19 @@ def phase_stereo_paths(metric, frames, dev, zero_counts, expect_counts,
     card_out = stereo.stereo_step(cfg, *two)
     cpu_out = stereo.stereo_step(cfg, *(a.cpu() for a in two))
     t_pair = time.perf_counter() - t0
-    diff = np.abs(card_out["image"].astype(np.int16)
-                  - cpu_out["image"].astype(np.int16))
-    differ, differ_1 = float(np.mean(diff > 0)), float(np.mean(diff > 1))
-    holes = [o["infill_mask"].max(-1) > 0 for o in (card_out, cpu_out)]
-    union = int((holes[0] | holes[1]).sum())
-    off = float((holes[0] != holes[1]).sum() / max(union, 1))
+    differ, differ_1, off, union, share = card_vs_cpu(card_out, cpu_out)
     res["card_vs_cpu"] = {"bytes_differing": differ,
                           "bytes_differing_by_more_than_1": differ_1,
                           "hole_disagreement_of_union": off,
-                          "hole_share": float(holes[0].mean())}
+                          "hole_share": share}
     log(f"[stereo_paths] forward step, 2 frames, card vs CPU ({t_pair:.1f} "
         f"s): {differ:.5%} of image bytes differ, {differ_1:.5%} by more "
         f"than 1; the hole masks disagree on {off:.5%} of their union "
-        f"({union} pixels; hole share {holes[0].mean():.4f})")
-    if not union or off > 0.01 or differ_1 > 0.001:
-        raise RuntimeError(f"stereo_paths: card vs CPU: hole masks disagree "
-                           f"on {off:.4%} of their union of {union} (limit "
-                           f"1%), {differ_1:.4%} of image bytes differ by "
-                           f"more than 1 (limit 0.1%)")
+        f"({union} pixels; hole share {share:.4f})")
+    check_card_vs_cpu("forward step", differ_1, off, union)
+    del card_out, cpu_out, args, two
+    res["plane_sweep"] = plane_sweep_check(metric, frames, tfs[0], dev,
+                                           zero_counts, expect_counts, card)
     res["s"] = time.perf_counter() - t_phase
     log(f"[stereo_paths] ({card}) phase: {res['s']:.3f} s")
     return res
@@ -5786,14 +5887,15 @@ def main():
                      help="also build the two sweep sources of this csrc "
                           "directory and time them beside this checkout's "
                           "(phase 2's bitmap ablation)")
-    cli.add_argument("--only", choices=("single_frame", "depth_engines",
-                                        "tracking", "export_view",
-                                        "parallel"),
+    cli.add_argument("--only", choices=("stereo_paths", "single_frame",
+                                        "depth_engines", "tracking",
+                                        "export_view", "parallel"),
                      help="run the build, phases 3-4 (the clip and the SBS "
-                          "frames it needs; tracking and export_view: phase "
-                          "3 alone, export_view then making its own tracks "
-                          "and poses; parallel: phases 3, 4 and 7) and this "
-                          "phase alone; prints no device line")
+                          "frames it needs; stereo_paths, tracking and "
+                          "export_view: phase 3 alone, export_view then "
+                          "making its own tracks and poses; parallel: "
+                          "phases 3, 4 and 7) and this phase alone; prints "
+                          "no device line")
     opts = cli.parse_args()
     baseline_csrc = opts.baseline_csrc
 
@@ -5865,6 +5967,18 @@ def main():
         single_frame = phase_single_frame(frames, sbs, dev, zero_counts,
                                           counts, expect_counts, smi[0])
         log(json.dumps({"single_frame": single_frame, "card": smi[0]}))
+        log(smi[0])
+        return 0
+    if opts.only == "stereo_paths":
+        metric, frames, _ = phase_depth(gen, dev)
+        mark("depth")
+        gc.collect()
+        torch.cuda.empty_cache()
+        stereo_paths = phase_stereo_paths(metric, frames, dev, zero_counts,
+                                          expect_counts, smi[0])
+        mark("stereo_paths")
+        log(json.dumps({"stereo_paths": stereo_paths, "card": smi[0]}))
+        log(json.dumps({"phase_end_s": phase_end_s}))
         log(smi[0])
         return 0
     if opts.only == "tracking":

@@ -27,6 +27,8 @@ import numpy as np
 from metric_depth_video_toolbox_tpu_torch.io.checkpoint import (  # noqa: F401
     load_checkpoint, save_checkpoint)
 from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
+from metric_depth_video_toolbox_tpu_torch.models.vit import (  # noqa: F401
+    interpolate_pos_embed)
 
 
 def _t(x):

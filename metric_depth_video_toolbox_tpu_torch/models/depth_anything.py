@@ -16,6 +16,7 @@ from torch import nn
 
 from metric_depth_video_toolbox_tpu_torch.models import dpt as dpt_mod
 from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
+from metric_depth_video_toolbox_tpu_torch.ops import solvers
 from metric_depth_video_toolbox_tpu_torch.ops.image import resize_nchw
 
 
@@ -116,3 +117,14 @@ def infer_depth(model, images_u8, out_hw, work_hw):
     x = resize_nchw(x, work_hw).permute(0, 2, 3, 1)
     d = model(x)
     return resize_nchw(d[:, None], out_hw)[:, 0]
+
+
+def scale_shift_align_to_metric(relative_disparity, metric_depth,
+                                weights=None, min_depth=1e-3):
+    """Fit (s, t) so that s * relative_disparity + t ~ 1 / metric_depth
+    (weighted least squares on inverse depths) -> (the aligned depth,
+    1 / max(s * rel + t, 1e-6); (s, t))."""
+    inv_metric = 1.0 / torch.clamp(metric_depth, min=min_depth)
+    s, t = solvers.scale_and_shift(relative_disparity, inv_metric, weights)
+    inv = relative_disparity * s + t
+    return 1.0 / torch.clamp(inv, min=1e-6), (s, t)

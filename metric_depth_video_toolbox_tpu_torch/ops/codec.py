@@ -14,6 +14,8 @@ explicitly). +inf clamps to ``max_depth``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _FULL_SCALE = float(255**4)
@@ -95,6 +97,28 @@ def decode_depth_frame(rgb, max_depth, bit16=True, average_rg=False,
     code = unpack_rgb_to_uint32(rgb, bit16=bit16, average_rg=average_rg)
     dec = decode_uint32_log_to_depth if log else decode_uint32_to_depth
     return dec(code, max_depth)
+
+
+def normalize_depth(depth, low_pct=1.0, high_pct=99.0):
+    """Percentile-normalize a depth map to [0, 1] for display. The
+    percentiles are over the finite values, sorted with the others as
+    +inf past them, each the value at index int(p / 100 * (n_valid - 1))
+    (no interpolation); non-finite pixels, and every pixel where the
+    range is at most 1e-6, give 0."""
+    d = depth.to(torch.float32)
+    finite = torch.isfinite(d)
+    safe = torch.where(finite, d, torch.zeros_like(d))
+    flat = torch.sort(torch.where(finite, d, torch.full_like(d, math.inf))
+                      .reshape(-1)).values
+    last = torch.clamp(finite.sum(), min=1).to(torch.float32) - 1
+
+    def at(pct):
+        idx = torch.tensor(pct / 100.0, dtype=torch.float32) * last
+        return flat[torch.clamp(idx, 0, flat.numel() - 1).to(torch.int64)]
+    d_min, d_max = at(low_pct), at(high_pct)
+    rng = d_max - d_min
+    out = torch.clamp((safe - d_min) / torch.clamp(rng, min=1e-6), 0.0, 1.0)
+    return torch.where(rng <= 1e-6, torch.zeros_like(out), out)
 
 
 def quantization_step(max_depth, bit16=True):

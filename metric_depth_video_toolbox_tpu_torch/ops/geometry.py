@@ -8,6 +8,8 @@ over leading batch axes.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -114,6 +116,17 @@ def convergence_angle(distance, pupillary_distance):
     return torch.atan2(torch.full_like(d, pupillary_distance / 2.0), d)
 
 
+def eye_view_transform(side_offset, convergence_angle_rad=0.0,
+                       reverse=False):
+    """Stereo-eye view transform (..., 4, 4): the eye moved sideways, then
+    turned inward by the toe-in; ``reverse`` is the exact inverse order."""
+    side = torch.as_tensor(side_offset, dtype=torch.float32)
+    angle = torch.as_tensor(convergence_angle_rad, dtype=torch.float32)
+    if not reverse:
+        return rotation_y(angle) @ translation_matrix(side, 0.0, 0.0)
+    return translation_matrix(-side, 0.0, 0.0) @ rotation_y(-angle)
+
+
 def fov_from_camera_matrix(k):
     """(xfov_deg, yfov_deg) of intrinsics k (..., 3, 3) with a centered
     principal point, in float32."""
@@ -121,6 +134,16 @@ def fov_from_camera_matrix(k):
     h = k[..., 1, 2] * 2.0
     return (torch.rad2deg(2.0 * torch.atan2(w, 2.0 * k[..., 0, 0])),
             torch.rad2deg(2.0 * torch.atan2(h, 2.0 * k[..., 1, 1])))
+
+
+def focal_scale_for_master_fov(master_fov_deg, xfov_deg):
+    """Depth rescale tan(master / 2) / tan(xfov / 2) that renders a
+    variable-FOV clip through one fixed master camera, in float32."""
+    m = torch.tan(torch.deg2rad(torch.as_tensor(master_fov_deg,
+                                                dtype=torch.float32)) / 2.0)
+    x = torch.tan(torch.deg2rad(torch.as_tensor(xfov_deg,
+                                                dtype=torch.float32)) / 2.0)
+    return m / x
 
 
 def project_points(points, k, eps=1e-9):
@@ -176,20 +199,104 @@ def look_at(eye, target, up):
     return m
 
 
+def cv_to_gl_view(cam_to_world):
+    """Camera-to-world (..., 4, 4) in OpenCV axes -> the OpenGL view
+    matrix inv(A inv(c2w) A), A = diag(1, -1, -1, 1)."""
+    a = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=torch.float32,
+                                device=cam_to_world.device))
+    return torch.linalg.inv(a @ torch.linalg.inv(cam_to_world) @ a)
+
+
+def apply_intrinsic_depth_scale(depth, scale):
+    """Depth times a scale (the master-FOV compensation), broadcast."""
+    return depth * torch.as_tensor(scale, dtype=depth.dtype,
+                                   device=depth.device)
+
+
+def deg2rad(d):
+    return d * (math.pi / 180.0)
+
+
+def frustum_planes(k, width, height, near, far, cam_to_world=None):
+    """The 6 frustum planes (6, 4) [nx, ny, nz, d] of intrinsics k (3, 3),
+    normals inward (p is inside iff n.p + d >= 0 for every plane): left,
+    right, top, bottom, near (z >= near), far (z <= far); optionally
+    through a 4x4 camera-to-world transform."""
+    dev = k.device
+    fx, fy = k[..., 0, 0], k[..., 1, 1]
+    cx, cy = k[..., 0, 2], k[..., 1, 2]
+    x0, x1 = (0.0 - cx) / fx, (width - cx) / fx
+    y0, y1 = (0.0 - cy) / fy, (height - cy) / fy
+
+    def through_origin(a, b):
+        n = torch.linalg.cross(a, b, dim=-1)
+        n = n / (torch.linalg.vector_norm(n) + 1e-12)
+        return torch.cat([n, torch.zeros(1, dtype=n.dtype, device=dev)])
+
+    one = torch.ones_like(x0)
+    tl, tr = torch.stack([x0, y0, one]), torch.stack([x1, y0, one])
+    bl, br = torch.stack([x0, y1, one]), torch.stack([x1, y1, one])
+    planes = torch.stack([
+        through_origin(tl, bl), through_origin(br, tr),
+        through_origin(tr, tl), through_origin(bl, br),
+        torch.tensor([0.0, 0.0, 1.0, -near], device=dev),
+        torch.tensor([0.0, 0.0, -1.0, far], device=dev)])
+    # side planes turned inward: positive at a point on the central ray
+    p_in = torch.tensor([0.0, 0.0, (near + far) / 2.0], device=dev)
+    side = planes[:, :3] @ p_in + planes[:, 3]
+    planes = planes * torch.where(side < 0, -1.0, 1.0)[:, None]
+    if cam_to_world is not None:
+        # planes transform by the inverse transpose
+        planes = planes @ torch.linalg.inv(cam_to_world)
+        norm = torch.linalg.vector_norm(planes[:, :3], dim=-1, keepdim=True)
+        planes = planes / torch.clamp(norm, min=1e-12)
+    return planes
+
+
 def frustum_corners(k, width, height, near, far, cam_to_world=None):
     """(8, 3) frustum corner points of intrinsics k (3, 3): the near
     plane's four, then the far plane's, optionally through a 4x4
     camera-to-world transform."""
     fx, fy = k[..., 0, 0], k[..., 1, 1]
     cx, cy = k[..., 0, 2], k[..., 1, 2]
-    xs = torch.tensor([0.0, width, width, 0.0], dtype=torch.float32)
-    ys = torch.tensor([0.0, 0.0, height, height], dtype=torch.float32)
+    xs = torch.tensor([0.0, width, width, 0.0], dtype=torch.float32,
+                      device=k.device)
+    ys = torch.tensor([0.0, 0.0, height, height], dtype=torch.float32,
+                      device=k.device)
     dirs = torch.stack([(xs - cx) / fx, (ys - cy) / fy,
-                        torch.ones(4, dtype=torch.float32)], dim=-1)
+                        torch.ones_like(xs)], dim=-1)
     corners = torch.cat([dirs * near, dirs * far], dim=0)
     if cam_to_world is not None:
         corners = transform_points(corners[None], cam_to_world)[0]
     return corners
+
+
+def points_in_frustum(points, planes):
+    """(N,) bool: points (N, 3) inside every one of planes (6, 4)."""
+    d = points @ planes[:, :3].T + planes[None, :, 3]
+    return torch.all(d >= 0.0, dim=-1)
+
+
+def frustums_intersect(planes_a, corners_a, planes_b, corners_b):
+    """Separating-plane test of two frusta (their planes and corners):
+    disjoint if every corner of one lies outside one plane of the other.
+    -> a 0-dim bool tensor."""
+    def separated(planes, corners):
+        d = corners @ planes[:, :3].T + planes[None, :, 3]
+        return torch.any(torch.all(d < 0.0, dim=0))
+
+    return ~(separated(planes_a, corners_b)
+             | separated(planes_b, corners_a))
+
+
+def disparity_steepness_mask(depth, k, baseline_m=0.063, threshold_px=1.5):
+    """Silhouette pixels by their disparity gradient: True where the
+    disparity fx * baseline / depth jumps by more than ``threshold_px`` to
+    the right or the lower neighbour."""
+    disp = k[..., 0, 0] * baseline_m / torch.clamp(depth, min=1e-6)
+    dx = torch.abs(torch.diff(disp, dim=-1, append=disp[..., -1:]))
+    dy = torch.abs(torch.diff(disp, dim=-2, append=disp[..., -1:, :]))
+    return (dx > threshold_px) | (dy > threshold_px)
 
 
 def estimate_focal_from_points(points_cam, height, width, weights=None):

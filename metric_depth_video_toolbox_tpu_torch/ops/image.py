@@ -1,7 +1,8 @@
 """Image-space ops (PyTorch port of the parts of ``ops/image.py`` that the
 stereo infill mask, the basic and the causal infill use): bilinear resize,
 bilinear sampling at float coordinates, separable Gaussian filters, masked
-blur, 2D filtering, morphology and the two-scale diffusion inpaint.
+blur, 2D filtering, morphology and the two-scale diffusion inpaint; and
+the side rescale of a frame size.
 
 Images are channels-last at the public functions, (..., H, W, C), like the
 JAX package (a 2D tensor is one (H, W) plane); the morphology works on
@@ -39,6 +40,18 @@ def resize_nchw(x, out_hw):
     y = F.interpolate(x.to(torch.float32), size=(oh, ow), mode="bilinear",
                       align_corners=False, antialias=shrink)
     return y.to(x.dtype)
+
+
+def rescale_to_side(h, w, side_length, mode="max", multiple=1):
+    """New (h, w) whose longest ("max") or shortest ("min") side is
+    ``side_length``, each side then cut down to a multiple of
+    ``multiple`` (a ViT's patch)."""
+    scale = side_length / (max(h, w) if mode == "max" else min(h, w))
+    nh, nw = int(h * scale), int(w * scale)
+    if multiple > 1:
+        nh -= nh % multiple
+        nw -= nw % multiple
+    return nh, nw
 
 
 def bilinear_sample(img, xy, fill=0.0):

@@ -19,6 +19,9 @@ Three warps share one output contract, :class:`WarpResult`:
   package agree. A batch whose candidates would pass ``ZBUFFER_BYTES``
   runs in passes of whole images (the images are independent: the same
   result bit for bit).
+- :func:`plane_sweep_warp`: the gather-only formulation, sweeping depth
+  hypotheses front to back per target pixel in chunks of 16 planes, in
+  passes of whole images within the same budget.
 
 Everything carries a leading batch axis (frames x eyes).
 """
@@ -34,9 +37,13 @@ from metric_depth_video_toolbox_tpu_torch.ops import geometry as geo
 from metric_depth_video_toolbox_tpu_torch.ops import warp_sweep
 
 INF_DEPTH = 3.0e38
-# the working set of one z-buffer pass: a batch whose candidates need more
-# runs in passes of whole images
+# the working set of one z-buffer pass (or of one plane-sweep chunk): a
+# batch that needs more runs in passes of whole images
 ZBUFFER_BYTES = 4 << 30
+# bytes a plane-sweep chunk holds per plane and target pixel: the hypothesis
+# and its source coordinates, and two bilinear gathers' int64 indices, taps
+# and weights
+PLANE_SWEEP_BYTES = 160
 
 
 class WarpResult(NamedTuple):
@@ -338,13 +345,17 @@ def _zbuffer(idx, zc, out_hw, depth_tie_eps):
     return zout, wflat.reshape(b, n)[:, :-1].reshape(b, ht, wt)
 
 
-def _images_per_pass(b, n_cand, n_slots, c):
-    """How many of b images one z-buffer pass takes, each with n_cand
-    candidates of c payload channels and n_slots target pixels: their
-    working set (slot, depth, position and payload per candidate; depth
-    and winner per slot) within ``ZBUFFER_BYTES``, and at least one."""
-    per_image = n_cand * (64 + 8 * c) + n_slots * (16 + 4 * c)
+def _images_per_pass(b, per_image):
+    """How many of b images, each with a working set of ``per_image``
+    bytes, one pass takes: within ``ZBUFFER_BYTES``, and at least one."""
     return max(1, min(b, ZBUFFER_BYTES // per_image))
+
+
+def _zbuffer_bytes(n_cand, n_slots, c):
+    """One image's z-buffer working set with n_cand candidates of c
+    payload channels and n_slots target pixels: slot, depth, position and
+    payload per candidate; depth and winner per slot."""
+    return n_cand * (64 + 8 * c) + n_slots * (16 + 4 * c)
 
 
 def _in_passes(fn, step, b, *batched):
@@ -382,7 +393,7 @@ def forward_warp(depth, color, k_src, k_dst, transform, out_hw,
     b, h, w = depth.shape
     c = color.shape[-1]
     s = int(subsample)
-    step = _images_per_pass(b, h * w * s * s, ht * wt, c)
+    step = _images_per_pass(b, _zbuffer_bytes(h * w * s * s, ht * wt, c))
     if step < b:
         return WarpResult(*_in_passes(
             lambda *a: forward_warp(*a, out_hw, subsample, remove_edges,
@@ -441,8 +452,8 @@ def splat_points(points_cam, payload, k, out_hw, radius=0, min_depth=1e-4,
     (B, Ht, Wt), INF where nothing landed, mask (B, Ht, Wt))."""
     b, n, _ = points_cam.shape
     n_rep = (2 * radius + 1) ** 2
-    step = _images_per_pass(b, n * n_rep, out_hw[0] * out_hw[1],
-                            payload.shape[-1])
+    step = _images_per_pass(b, _zbuffer_bytes(
+        n * n_rep, out_hw[0] * out_hw[1], payload.shape[-1]))
     if step < b:
         return _in_passes(
             lambda *a: splat_points(*a, out_hw, radius, min_depth,
@@ -462,6 +473,123 @@ def splat_points(points_cam, payload, k, out_hw, radius=0, min_depth=1e-4,
     img = _take_payload(payload.to(torch.float32),
                         torch.where(winner >= 0, winner % n, -1))
     return img, zout, zout < INF_DEPTH
+
+
+def plane_sweep_warp(depth, color, k_src, k_dst, transform, out_hw,
+                     num_planes=128, remove_edges=True, edge_angle_deg=89.0,
+                     of_by_one=True, min_depth=1e-2, tol_scale=2.0):
+    """Scatter-free re-render of a batch: for every target pixel, sweep
+    depth hypotheses front to back (uniform in inverse depth over each
+    source depth map's range), back-project each into the source camera
+    and accept the first whose bilinearly sampled source depth agrees.
+
+    Arguments as :func:`forward_warp`. Returns a :class:`WarpResult`.
+    """
+    ht, wt = out_hw
+    b, h, w = depth.shape
+    chunk = min(16, num_planes)
+    step = _images_per_pass(b, chunk * ht * wt * PLANE_SWEEP_BYTES)
+    if step < b:
+        return WarpResult(*_in_passes(
+            lambda *a: plane_sweep_warp(*a, out_hw, num_planes, remove_edges,
+                                        edge_angle_deg, of_by_one, min_depth,
+                                        tol_scale),
+            step, b, depth, color, k_src, k_dst, transform))
+    dev = depth.device
+    depth = depth.to(torch.float32)
+
+    edge = (cell_edge_mask(geo.unproject_depth(depth, k_src,
+                                               of_by_one=of_by_one),
+                           edge_angle_deg) if remove_edges else None)
+    valid_src = depth > min_depth
+    inf = torch.full_like(depth, math.inf)
+    z_near = torch.clamp(torch.where(valid_src, depth, inf).amin((1, 2)),
+                         min=min_depth)
+    z_far = torch.maximum(torch.where(valid_src, depth, -inf).amax((1, 2)),
+                          z_near * (1.0 + 1e-3))
+    inv_near = 1.0 / z_near
+    d_inv = (inv_near - 1.0 / z_far) / (num_planes - 1)
+
+    def col(a):                     # (B,) -> (B, 1, 1, 1) over the chunk
+        return a[:, None, None, None]
+    m_inv = torch.linalg.inv(transform)
+    r = m_inv[:, :3, :3]
+    t = m_inv[:, :3, 3]
+    x = ((torch.arange(wt, dtype=torch.float32, device=dev)[None]
+          - k_dst[:, 0, 2, None]) / k_dst[:, 0, 0, None])
+    y = ((torch.arange(ht, dtype=torch.float32, device=dev)[None]
+          - k_dst[:, 1, 2, None]) / k_dst[:, 1, 1, None])
+    dir_x = x[:, None, None, :]     # (B, 1, 1, Wt)
+    dir_y = y[:, None, :, None]     # (B, 1, Ht, 1)
+    fx_s, fy_s = col(k_src[:, 0, 0]), col(k_src[:, 1, 1])
+    cx_s, cy_s = col(k_src[:, 0, 2]), col(k_src[:, 1, 2])
+    # the source grid was built with the of_by_one stretch: invert it when
+    # mapping back to source pixel indices
+    sx = (w / (w + 1.0)) if of_by_one else 1.0
+    sy = (h / (h + 1.0)) if of_by_one else 1.0
+    edge_f = edge.to(torch.float32) if edge is not None else None
+
+    # the last chunk is padded past num_planes, as in the JAX package's scan
+    n_chunks = -(-num_planes // chunk)
+    plane_ids = torch.arange(n_chunks * chunk, dtype=torch.float32,
+                             device=dev).reshape(n_chunks, chunk)
+    found = torch.zeros((b, ht, wt), dtype=torch.bool, device=dev)
+    best_z = torch.full((b, ht, wt), INF_DEPTH, dtype=torch.float32,
+                        device=dev)
+    best_u = torch.zeros((b, ht, wt), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((b, ht, wt), dtype=torch.float32, device=dev)
+    for ids in plane_ids:
+        inv_z = inv_near[:, None] - d_inv[:, None] * ids[None]
+        z_t = (1.0 / inv_z)[:, :, None, None]            # (B, C, 1, 1)
+        px = dir_x * z_t
+        py = dir_y * z_t
+
+        def row(i):
+            return (col(r[:, i, 0]) * px + col(r[:, i, 1]) * py
+                    + col(r[:, i, 2]) * z_t + col(t[:, i]))
+        sx_c, sy_c, sz_c = row(0), row(1), row(2)
+        behind = sz_c <= min_depth
+        zs = torch.where(behind, torch.ones_like(sz_c), sz_c)
+        u_s = (sx_c / zs * fx_s + cx_s) * sx
+        v_s = (sy_c / zs * fy_s + cy_s) * sy
+        d_s = _bilinear_gather(depth, u_s, v_s, fill=-1.0)
+        tol = tol_scale * sz_c * sz_c * col(d_inv) + 1e-4
+        ok = (~behind) & (d_s > min_depth) & (torch.abs(d_s - sz_c) < tol)
+        if edge_f is not None:
+            ok = ok & (_bilinear_gather(edge_f, u_s, v_s, fill=1.0) < 0.25)
+        hit = ok.any(dim=1)
+        # the first consistent plane of the chunk (argmax returns the
+        # first maximum)
+        first = ok.to(torch.uint8).argmax(dim=1, keepdim=True)
+
+        def pick(field):
+            return torch.gather(field.expand(b, chunk, ht, wt), 1,
+                                first)[:, 0]
+        newly = hit & ~found
+        best_z = torch.where(newly, pick(sz_c), best_z)
+        best_u = torch.where(newly, pick(u_s), best_u)
+        best_v = torch.where(newly, pick(v_s), best_v)
+        found = found | hit
+
+    out_color = _bilinear_gather(color.to(torch.float32), best_u, best_v,
+                                 fill=0.0)
+    out_color = torch.where(found[..., None], out_color,
+                            torch.zeros_like(out_color))
+    # refine past the plane quantization: the matched source pixel's own
+    # depth, unprojected and carried through the forward transform
+    d_hit = _bilinear_gather(depth, best_u, best_v, fill=0.0)
+    sxp = (best_u / sx - cx_s[..., 0]) / fx_s[..., 0] * d_hit
+    syp = (best_v / sy - cy_s[..., 0]) / fy_s[..., 0] * d_hit
+    rf = transform[:, None, None, 2, :]
+    z_ref = (rf[..., 0] * sxp + rf[..., 1] * syp + rf[..., 2] * d_hit
+             + rf[..., 3])
+    out_depth = torch.where(found & (d_hit > min_depth), z_ref,
+                            torch.where(found, best_z,
+                                        torch.full_like(best_z, INF_DEPTH)))
+    edge_out = (edge & valid_src) if edge is not None else \
+        torch.zeros((b, h, w), dtype=torch.bool, device=dev)
+    return WarpResult(color=out_color, depth=out_depth, mask=found,
+                      edge_mask=edge_out)
 
 
 def warp_pixel_ids(depth, k_src, k_dst, transform, out_hw, subsample=1,

@@ -11,9 +11,9 @@ two objects:
     (``parallel.sharding.FrameReplicas``).
 
 :func:`replicas` is the frame mesh an engine builds with
-``data_parallel=True``: every card for a CUDA device, so on one card
-none. It is the one seam tests patch to get several replicas on the CPU or
-on one card.
+``data_parallel=True``: every card for a CUDA device, the engine's own
+first, so on one card none. It is the one seam tests patch to get several
+replicas on the CPU or on one card.
 """
 
 from __future__ import annotations
@@ -74,10 +74,18 @@ def frame_mesh(n_devices=None, device=None):
 
 def replicas(device):
     """The frame mesh an engine on ``device`` spans with
-    ``data_parallel=True``: every card for a CUDA device, the CPU alone
-    for the CPU."""
+    ``data_parallel=True``: for a CUDA device every card, the engine's
+    own first (its module stays where the caller put it), then the others
+    in order; the CPU alone for the CPU."""
     device = torch.device(device)
-    return frame_mesh() if device.type == "cuda" else frame_mesh(1, device)
+    if device.type != "cuda":
+        return frame_mesh(1, device)
+    cards = frame_mesh()
+    if len(cards) < 2:
+        return cards
+    own = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return [cards[own]] + cards[:own] + cards[own + 1:]
 
 
 def engine_mesh(device, divides=None, what="batch"):

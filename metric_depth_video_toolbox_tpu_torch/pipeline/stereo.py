@@ -55,12 +55,17 @@ class StereoConfig:
     touchly1: bool = False
     touchly_max_depth: float = 5.0
     touchly_min_depth: float = 0.0
+    # taken and never read, as in the JAX package (the renderer gets VR180
+    # from its render size and camera)
+    vr180: bool = False
     # samples per grid cell side of the forward warp (1 = points)
     subsample: int = 2
     inpaint_iters: int = 48
     # 'sweep' = the disparity sweep (valid when the only transform is the
     # stereo eye shift [+ toe-in]); 'forward' = the scatter z-buffer (any
-    # transform and render camera)
+    # transform and render camera); 'plane_sweep' = the gather sweep (any
+    # transform and render camera, bilinear source sampling); any other
+    # value is 'forward'
     warp_method: str = "sweep"
     num_planes: int = 128
     has_convergence: bool = True
@@ -176,6 +181,11 @@ def render_eye(depth, color, k, render_k, transform, eye_shift_m, conv_angle,
             depth, color, k, m_sweep, num_planes=cfg.num_planes,
             remove_edges=cfg.remove_edges, neutralize_rotation=rotate_conv,
             conv_inv_z=sweep_conv, edge=edge_pre)
+    elif cfg.warp_method == "plane_sweep":
+        res = rasterize.plane_sweep_warp(
+            depth, color, k, render_k, m_eye, out_hw,
+            num_planes=cfg.num_planes, remove_edges=cfg.remove_edges,
+            of_by_one=True)
     else:
         res = rasterize.forward_warp(
             depth, color, k, render_k, m_eye, out_hw,
@@ -449,7 +459,7 @@ def render_stereo_video(depth_video, color_video=None, output=None,
         green_and_black_infill_mask=green_and_black_infill_mask,
         do_basic_infill=do_basic_infill, touchly0=touchly0,
         touchly1=touchly1, touchly_max_depth=touchly_max_depth,
-        touchly_min_depth=touchly_min_depth,
+        touchly_min_depth=touchly_min_depth, vr180=vr180,
         warp_method=warp_method, num_planes=num_planes,
         subsample=1 if render_as_pointcloud else StereoConfig.subsample,
         has_convergence=convergence_depths is not None,
@@ -503,8 +513,7 @@ def render_stereo_video(depth_video, color_video=None, output=None,
                 fi = frame_n + i
                 xf = xfovs[fi] if xfovs is not None else xfov
                 k = geo.camera_matrix_from_fov(
-                    w, h, xfov_deg=xf, yfov_deg=yfov if xf is None
-                    else None)
+                    w, h, xfov_deg=xf, yfov_deg=yf_or_none(xf, yfov))
                 rk = k
                 frame_master = master_xfov
                 if vr180:
@@ -553,6 +562,12 @@ def render_stereo_video(depth_video, color_video=None, output=None,
     if depth_writer is not None:
         depth_writer.commit(frame_n)
     return output
+
+
+def yf_or_none(xf, yfov):
+    """The y FOV a frame's camera takes: ``yfov`` where no x FOV is
+    given, else None (the x FOV sets the focal)."""
+    return yfov if xf is None else None
 
 
 def _render_background_mode(depth_video, color_video, mask_video,

@@ -125,6 +125,23 @@ def test_frame_mesh_and_pad_to_multiple():
     assert tmesh.pad_to_multiple(x, 5)[0] is x
 
 
+@pytest.mark.parametrize("count,device,current,want", [
+    (2, "cuda:0", 0, [0, 1]), (2, "cuda:1", 0, [1, 0]),
+    (3, "cuda:2", 0, [2, 0, 1]), (2, "cuda", 1, [1, 0])])
+def test_replicas_start_on_the_engines_card(monkeypatch, count, device,
+                                            current, want):
+    """An engine's frame mesh starts with the engine's own card (the
+    current card for a bare "cuda"), then the others in order: FrameReplicas
+    keeps the engine's module on the mesh's first device, so on a machine
+    of several cards the model stays where the caller put it."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    cards = [torch.device("cuda", i) for i in want]
+    assert tmesh.replicas(device) == cards
+    assert tmesh.engine_mesh(device) == cards
+    assert tmesh.engine_mesh(device, divides=2) == cards[:2]
+
+
 # --- the loss and the train step against JAX -------------------------------
 
 @pytest.mark.parametrize("masked", [False, True])

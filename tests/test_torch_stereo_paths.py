@@ -1,5 +1,5 @@
 """The general stereo renderer against the JAX package: ``stereo_frame``
-under the forward warp, Touchly0 and Touchly1 (op by op),
+under the forward warp, the plane sweep, Touchly0 and Touchly1 (op by op),
 and ``render_stereo_video`` file to file under a camera path with a lock
 frame, ``render_as_pointcloud``, Touchly0, Touchly1, VR180 and the
 background mode (the JAX step jitted).
@@ -8,7 +8,10 @@ Budgets, uint8 bytes of the image and infill-mask outputs:
 - op by op, the forward warp is bit-exact (``tests/test_torch_rasterize.py``)
   and so are these steps but for the infill-mask normals' filters and
   ``x * 255`` truncation: at most 1 LSB on at most 0.5% of bytes, as the
-  sweep path's budget (``tests/test_torch_stereo.py``);
+  sweep path's budget (``tests/test_torch_stereo.py``); the plane sweep's
+  JAX loop is compiled (``lax.scan``), so its image may differ by more
+  where a fused rounding moves a bilinear tap: bytes off by more than 1 on
+  at most 0.5%, the hit mask equal;
 - file to file against the jitted JAX step, where XLA's fused rounding may
   move a landing pixel of the forward warp: at most 1% of bytes differing,
   at most 0.1% by more than 1, and the hole masks (any nonzero infill-mask
@@ -17,6 +20,7 @@ Budgets, uint8 bytes of the image and infill-mask outputs:
   <= 0.04% / 0 / 0.
 """
 
+import dataclasses
 import json
 import os
 from functools import partial
@@ -34,6 +38,7 @@ from metric_depth_video_toolbox_tpu_torch.cli import main as tmain
 from metric_depth_video_toolbox_tpu_torch.cli import stereo_rerender as tcli
 from metric_depth_video_toolbox_tpu_torch.io import sidecar as tside
 from metric_depth_video_toolbox_tpu_torch.io import video as tvio
+from metric_depth_video_toolbox_tpu_torch.ops import codec as tcodec
 from metric_depth_video_toolbox_tpu_torch.pipeline import stereo as tst
 from port_helpers import _one_torch_thread  # noqa: F401
 
@@ -72,6 +77,7 @@ FRAME_MODES = {
     "forward": ({"warp_method": "forward"}, None),
     "forward_render_camera": ({"warp_method": "forward", "subsample": 1},
                               (40, 56)),
+    "plane_sweep": ({"warp_method": "plane_sweep", "num_planes": 32}, None),
     "touchly0": ({"warp_method": "forward", "touchly0": True}, (40, 40)),
     "touchly1": ({"touchly1": True, "num_planes": 32}, None),
 }
@@ -105,7 +111,10 @@ def test_stereo_frame_matches_jax(mode):
                            torch.ones(b), tst.StereoConfig(**common))
     for key in ("image", "infill_mask"):
         share, big = diff(got[key].numpy(), np.asarray(want[key]))
-        assert share <= 0.005 and big == 0, (key, share, big)
+        if mode == "plane_sweep":
+            assert big <= 0.005, (key, big)
+        else:
+            assert share <= 0.005 and big == 0, (key, share, big)
     hole = got["infill_mask"].numpy().max(-1) > 0
     assert 0 < hole.mean() < 0.3
     for key in ("depth_left", "depth_right"):
@@ -113,6 +122,29 @@ def test_stereo_frame_matches_jax(mode):
         np.testing.assert_array_equal(g_ < 1e38, w_ < 1e38)
         fin = w_ < 1e38
         np.testing.assert_allclose(g_[fin], w_[fin], rtol=5e-5)
+
+
+# JAX fields the port's StereoConfig leaves out on purpose, with the reason
+LEFT_OUT_FIELDS = {
+    # the normal-march infill's step limit: no caller sets it, so the port
+    # keeps the march's own default (400, the JAX field's default)
+    "infill_march_steps",
+}
+
+
+def test_stereo_config_takes_every_jax_field():
+    """A JAX caller's ``StereoConfig(...)`` constructs in the port: every
+    field of the JAX dataclass at its default but those left out on
+    purpose, ``vr180=True`` too; each left-out field is really missing."""
+    fields = {f.name: f.default for f in dataclasses.fields(jst.StereoConfig)}
+    ported = {f.name for f in dataclasses.fields(tst.StereoConfig)}
+    assert LEFT_OUT_FIELDS <= set(fields) - ported
+    assert set(fields) - LEFT_OUT_FIELDS <= ported
+    kw = {k: v for k, v in fields.items()
+          if v is not dataclasses.MISSING and k not in LEFT_OUT_FIELDS}
+    cfg = tst.StereoConfig(**{**kw, "width": W, "height": H, "out_width": W,
+                              "out_height": H, "vr180": True})
+    assert cfg.vr180
 
 
 def test_touchly_depth_panel_matches_jax():
