@@ -32,6 +32,7 @@ from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
 from metric_depth_video_toolbox_tpu_torch.ops import solvers
 from metric_depth_video_toolbox_tpu_torch.ops.image import resize_nchw
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
+from metric_depth_video_toolbox_tpu_torch.utils.timer import add, span
 
 
 def _cv_vit(base):
@@ -160,27 +161,29 @@ class DA3(nn.Module):
 
     def forward(self, frames, cam_rays=None):
         c = self.cfg
-        v = frames.shape[0]
-        cond = None
-        if cam_rays is not None:
-            cond = self.ray_embed(cam_rays.to(c.vit.compute_dtype))
-        feats, _ = self.backbone(frames, cond=cond, view_group=v)
-        heads = self.head(feats)
-        out = {"depth": torch.clamp(heads["depth"].to(torch.float32), 0.0,
-                                    c.max_depth)}
-        if c.ray_head:
-            rays = heads["rays"].to(torch.float32)
-            out["rays"] = rays
-            # the solve does not depend on the grid: pool to the patch grid
-            p = c.vit.patch_size
-            gh, gw = rays.shape[1] // p, rays.shape[2] // p
-            pooled = rays.reshape(v, gh, p, gw, p, 6).mean(dim=(2, 4))
-            out["w2c"], out["xfov_deg"] = cameras_from_raymap(
-                pooled, float(rays.shape[2]))
-        else:
-            out["w2c"] = torch.eye(4, device=frames.device).repeat(v, 1, 1)
-            out["xfov_deg"] = torch.full((v,), 50.0, device=frames.device)
-        return out
+        v, dev = frames.shape[0], frames.device
+        with span("depth.encoder", device=dev, frames=v):
+            cond = None
+            if cam_rays is not None:
+                cond = self.ray_embed(cam_rays.to(c.vit.compute_dtype))
+            feats, _ = self.backbone(frames, cond=cond, view_group=v)
+        with span("depth.head", device=dev, frames=v):
+            heads = self.head(feats)
+            out = {"depth": torch.clamp(heads["depth"].to(torch.float32),
+                                        0.0, c.max_depth)}
+            if c.ray_head:
+                rays = heads["rays"].to(torch.float32)
+                out["rays"] = rays
+                # the solve does not depend on the grid: pool to the patch grid
+                p = c.vit.patch_size
+                gh, gw = rays.shape[1] // p, rays.shape[2] // p
+                pooled = rays.reshape(v, gh, p, gw, p, 6).mean(dim=(2, 4))
+                out["w2c"], out["xfov_deg"] = cameras_from_raymap(
+                    pooled, float(rays.shape[2]))
+            else:
+                out["w2c"] = torch.eye(4, device=dev).repeat(v, 1, 1)
+                out["xfov_deg"] = torch.full((v,), 50.0, device=dev)
+            return out
 
 
 class DA3Engine:
@@ -284,12 +287,20 @@ class DA3Engine:
         x = resize_nchw(x, work_hw).permute(0, 2, 3, 1)
         out = model(x, rays)
         d = resize_nchw(out["depth"][:, None], out_hw)[:, 0]
-        return d, out["w2c"].cpu().numpy(), out["xfov_deg"].cpu().numpy()
+        with span("depth.to_host"):
+            w2c = out["w2c"].cpu().numpy()
+            xfov = out["xfov_deg"].cpu().numpy()
+            add("bytes", w2c.nbytes + xfov.nbytes)
+        return d, w2c, xfov
 
     @torch.no_grad()
     def infer_video(self, frames_u8):
         """(T, H, W, 3) uint8 -> numpy (depth (T, H, W), c2w (T, 4, 4),
         xfov (T,))."""
+        with span("depth.video", frames=frames_u8.shape[0]):
+            return self._infer_video(frames_u8)
+
+    def _infer_video(self, frames_u8):
         t, h, w = frames_u8.shape[:3]
         wh, ww = self._work_hw(h, w)
         windowed = t > self.images_per_batch
@@ -332,52 +343,68 @@ class DA3Engine:
             batch_ids = list(range(start, min(start + n_batch, t)))
             n_pre = len(ref_ids) + len(tail_ids)
             idx = np.asarray(ref_ids + tail_ids + batch_ids)
-            if v_total > idx.size:     # every window runs at one size
-                idx = np.concatenate(
-                    [idx, np.full(v_total - idx.size, idx[-1])])
-            d, w2c, fov = self._run_window(
-                model, torch.as_tensor(frames_u8[idx]).to(self.device),
-                None if all_rays is None
-                else torch.as_tensor(all_rays[idx]).to(self.device),
-                (h, w), (wh, ww))
-            c2w = np.linalg.inv(w2c)         # the model's extrinsics are w2c
+            new_from = tail_ids[-1] + 1 if tail_ids else start
+            with span("depth.window", views=v_total,
+                      new=batch_ids[-1] + 1 - new_from,
+                      padded=v_total - idx.size):
+                if v_total > idx.size:     # every window runs at one size
+                    idx = np.concatenate(
+                        [idx, np.full(v_total - idx.size, idx[-1])])
+                with span("depth.to_device"):
+                    x = frames_u8[idx]
+                    rays = None if all_rays is None else all_rays[idx]
+                    add("bytes", x.nbytes + (0 if rays is None
+                                             else rays.nbytes))
+                    x = torch.as_tensor(x).to(self.device)
+                    if rays is not None:
+                        rays = torch.as_tensor(rays).to(self.device)
+                d, w2c, fov = self._run_window(model, x, rays, (h, w),
+                                               (wh, ww))
+                with span("depth.align"):
+                    c2w = np.linalg.inv(w2c)   # the model's extrinsics: w2c
 
-            if align_depths is None and n_pre:
-                align_depths = d[:len(ref_ids)]
+                    if align_depths is None and n_pre:
+                        align_depths = d[:len(ref_ids)]
 
-            # depth-scale stitch on the shared frames' depths
-            if tail_depth is not None and n_pre:
-                anchor = tail_depth if align_depths is None else \
-                    torch.cat([align_depths, tail_depth], dim=0)
-                s = float(solvers.least_squares_scale(anchor, d[:n_pre]))
-                d = d * s
-                c2w[:, :3, 3] *= s
+                    # depth-scale stitch on the shared frames' depths
+                    if tail_depth is not None and n_pre:
+                        anchor = tail_depth if align_depths is None else \
+                            torch.cat([align_depths, tail_depth], dim=0)
+                        s = float(solvers.least_squares_scale(anchor,
+                                                              d[:n_pre]))
+                        d = d * s
+                        c2w[:, :3, 3] *= s
 
-            # pose stitch: Umeyama over the shared camera centers, then a
-            # weld on the last shared frame
-            if tail_c2w is not None and tail_ids:
-                cur_centers = c2w[len(ref_ids):n_pre, :3, 3]
-                if cur_centers.shape[0] >= 3:
-                    s3, r3, t3 = (x.numpy() for x in solvers.umeyama_sim3(
-                        torch.as_tensor(cur_centers),
-                        torch.as_tensor(tail_c2w[:, :3, 3])))
-                    sim = np.eye(4, dtype=np.float32)
-                    sim[:3, :3] = s3 * r3
-                    sim[:3, 3] = t3
-                    c2w = sim @ c2w
-                c2w = tail_c2w[-1] @ np.linalg.inv(c2w[n_pre - 1]) @ c2w
+                    # pose stitch: Umeyama over the shared camera centers,
+                    # then a weld on the last shared frame
+                    if tail_c2w is not None and tail_ids:
+                        cur_centers = c2w[len(ref_ids):n_pre, :3, 3]
+                        if cur_centers.shape[0] >= 3:
+                            s3, r3, t3 = (
+                                x.numpy() for x in solvers.umeyama_sim3(
+                                    torch.as_tensor(cur_centers),
+                                    torch.as_tensor(tail_c2w[:, :3, 3])))
+                            sim = np.eye(4, dtype=np.float32)
+                            sim[:3, :3] = s3 * r3
+                            sim[:3, 3] = t3
+                            c2w = sim @ c2w
+                        c2w = tail_c2w[-1] @ np.linalg.inv(c2w[n_pre - 1]) \
+                            @ c2w
 
-            new = slice(n_pre, n_pre + len(batch_ids))
-            depth_out[batch_ids] = d[new].cpu().numpy()
-            c2w_out[batch_ids] = c2w[new]
-            fov_out[batch_ids] = fov[new]
+                new = slice(n_pre, n_pre + len(batch_ids))
+                with span("depth.to_host"):
+                    d_new = d[new].cpu().numpy()
+                    add("bytes", d_new.nbytes)
+                    depth_out[batch_ids] = d_new
+                c2w_out[batch_ids] = c2w[new]
+                fov_out[batch_ids] = fov[new]
 
-            tail_ids = batch_ids[-self.overlap:] if windowed else []
-            if tail_ids:
-                tail_c2w = c2w_out[tail_ids]
-                tail_depth = d[new][-len(tail_ids):]
-            else:
-                tail_c2w = tail_depth = None
+                tail_ids = batch_ids[-self.overlap:] if windowed else []
+                if tail_ids:
+                    tail_c2w = c2w_out[tail_ids]
+                    tail_depth = d[new][-len(tail_ids):]
+                else:
+                    tail_c2w = tail_depth = None
             if start + n_batch >= t:
                 break
             start += step

@@ -18,6 +18,7 @@ from metric_depth_video_toolbox_tpu_torch.models import dpt as dpt_mod
 from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
 from metric_depth_video_toolbox_tpu_torch.ops import solvers
 from metric_depth_video_toolbox_tpu_torch.ops.image import resize_nchw
+from metric_depth_video_toolbox_tpu_torch.utils.timer import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,26 +67,29 @@ class DepthAnything(nn.Module):
 
     def forward(self, images, rays=None):
         c = self.cfg
-        cond = None
-        if c.k_condition and rays is not None:
-            cond = self.ray_embed(rays)
-        feats, cls = self.backbone(images, cond)
-        out = self.head(feats)
-        if c.point_head:
-            out = out.to(torch.float32)
-            return out[..., :3], out[..., 3]
-        out = out[..., 0].to(torch.float32)
-        if c.metric:
-            if c.dpt.head_act == "sigmoid":
-                out = out * c.max_depth
-            else:
-                out = torch.clamp(out, 0.0, c.max_depth)
-        if c.fov_head:
-            # flax nn.gelu: the tanh form
-            h = F.gelu(self.fov_fc(cls), approximate="tanh")
-            f = self.fov_out(h)
-            return out, 25.0 + 90.0 * torch.sigmoid(f[..., 0])
-        return out
+        n, dev = images.shape[0], images.device
+        with span("depth.encoder", device=dev, frames=n):
+            cond = None
+            if c.k_condition and rays is not None:
+                cond = self.ray_embed(rays)
+            feats, cls = self.backbone(images, cond)
+        with span("depth.head", device=dev, frames=n):
+            out = self.head(feats)
+            if c.point_head:
+                out = out.to(torch.float32)
+                return out[..., :3], out[..., 3]
+            out = out[..., 0].to(torch.float32)
+            if c.metric:
+                if c.dpt.head_act == "sigmoid":
+                    out = out * c.max_depth
+                else:
+                    out = torch.clamp(out, 0.0, c.max_depth)
+            if c.fov_head:
+                # flax nn.gelu: the tanh form
+                h = F.gelu(self.fov_fc(cls), approximate="tanh")
+                f = self.fov_out(h)
+                return out, 25.0 + 90.0 * torch.sigmoid(f[..., 0])
+            return out
 
 
 def patch_center_rays(xfov_deg, gh, gw, yfov_deg=None):

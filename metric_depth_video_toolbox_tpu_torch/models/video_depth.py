@@ -25,6 +25,7 @@ from metric_depth_video_toolbox_tpu_torch.models.vit import (Conv, Dense,
 from metric_depth_video_toolbox_tpu_torch.ops import solvers
 from metric_depth_video_toolbox_tpu_torch.ops.image import resize_nchw
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
+from metric_depth_video_toolbox_tpu_torch.utils.timer import add, span
 
 GN_EPS = 1e-6   # flax.linen.GroupNorm's default
 
@@ -183,8 +184,11 @@ class VideoDepthAnything(nn.Module):
         self.head = DPTHeadTemporal(cfg)
 
     def forward(self, frames):
-        feats, _ = self.backbone(frames)
-        return self.head(feats)[..., 0].to(torch.float32)
+        n, dev = frames.shape[0], frames.device
+        with span("depth.encoder", device=dev, frames=n):
+            feats, _ = self.backbone(frames)
+        with span("depth.head", device=dev, frames=n):
+            return self.head(feats)[..., 0].to(torch.float32)
 
 
 def stitch_windows(window_disps, overlap, total):
@@ -220,12 +224,21 @@ def infer_video_depth(model, frames_u8, work_hw, out_hw, window=32,
         starts.append(starts[-1] + step)
     disps = []
     for s0 in starts:
-        idx = torch.clamp(torch.arange(s0, s0 + window), max=t_total - 1)
-        x = frames[idx].to(device).to(torch.float32).permute(0, 3, 1, 2)
-        x = resize_nchw(x / 255.0, work_hw).permute(0, 2, 3, 1)
-        d = model(x) if mesh is None else mesh(lambda m, xs: m(xs), x)
-        d = resize_nchw(d[:, None], out_hw)[:, 0]
-        disps.append(d[: min(window, t_total - s0)])
+        end = min(s0 + window, t_total)
+        with span("depth.window", views=window,
+                  new=end - (s0 + overlap if s0 else 0),
+                  padded=s0 + window - end):
+            idx = torch.clamp(torch.arange(s0, s0 + window), max=t_total - 1)
+            with span("depth.to_device"):
+                x = frames[idx]
+                add("bytes", x.nbytes)
+                x = x.to(device)
+            x = x.to(torch.float32).permute(0, 3, 1, 2)
+            x = resize_nchw(x / 255.0, work_hw).permute(0, 2, 3, 1)
+            d = model(x) if mesh is None else mesh(lambda m, xs: m(xs), x)
+            d = resize_nchw(d[:, None], out_hw)[:, 0]
+            disps.append(d[: end - s0])
     if len(disps) == 1:
         return disps[0][:t_total]
-    return stitch_windows(disps, overlap, t_total)
+    with span("depth.align"):
+        return stitch_windows(disps, overlap, t_total)

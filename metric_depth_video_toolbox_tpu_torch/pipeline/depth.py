@@ -44,6 +44,7 @@ from metric_depth_video_toolbox_tpu_torch.models import vit as vit_mod
 from metric_depth_video_toolbox_tpu_torch.ops import solvers
 from metric_depth_video_toolbox_tpu_torch.ops.image import resize_nchw
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
+from metric_depth_video_toolbox_tpu_torch.utils.timer import add, span
 
 
 def _downsample_bilinear(frames, out_hw):
@@ -207,6 +208,10 @@ class VDAEngine:
     def infer_video(self, frames_u8, reference_depth=None):
         """(T, H, W, 3) uint8 -> (T, H, W) float32 metric depth (numpy)."""
         t, h, w = frames_u8.shape[:3]
+        with span("depth.video", frames=t):
+            return self._infer_video(frames_u8, reference_depth, t, h, w)
+
+    def _infer_video(self, frames_u8, reference_depth, t, h, w):
         work_hw = da.working_resolution(h, w, self.input_size,
                                         self.cfg.vit.patch_size)
         model, anchor = self.models(work_hw)
@@ -224,29 +229,41 @@ class VDAEngine:
                                       device=self.device)
                 return (_downsample_bilinear(ref, anchor_hw)
                         if tuple(ref.shape[1:3]) != anchor_hw else ref)
-            chunks = [da.infer_depth(anchor,
-                                     frames[idx[i:i + 16]].to(self.device),
-                                     anchor_hw, work_hw)
-                      for i in range(0, len(idx), 16)]
-            return torch.cat(chunks, dim=0)
+            with span("depth.anchor", device=self.device, frames=len(idx)):
+                chunks = []
+                for i in range(0, len(idx), 16):
+                    with span("depth.to_device"):
+                        x = frames[idx[i:i + 16]]
+                        add("bytes", x.nbytes)
+                        x = x.to(self.device)
+                    chunks.append(da.infer_depth(anchor, x, anchor_hw,
+                                                 work_hw))
+                return torch.cat(chunks, dim=0)
 
         if self.rolling_average > 0:
             idx = np.arange(0, t, self.anchor_stride)
             inv_anchor = 1.0 / torch.clamp(anchor_depth(idx), min=1e-3)
-            s_t, t_t = solvers.rolling_scale_shift(
-                disp[idx], inv_anchor, idx, t, window=self.rolling_average)
-            inv = (disp * torch.as_tensor(s_t, device=self.device)[:, None,
-                                                                   None]
-                   + torch.as_tensor(t_t, device=self.device)[:, None, None])
+            with span("depth.align"):
+                s_t, t_t = solvers.rolling_scale_shift(
+                    disp[idx], inv_anchor, idx, t,
+                    window=self.rolling_average)
+                inv = (disp * torch.as_tensor(s_t, device=self.device)[
+                    :, None, None] + torch.as_tensor(
+                        t_t, device=self.device)[:, None, None])
         else:
             idx = np.arange(min(self.metric_anchor_frames, t))
             inv_anchor = 1.0 / torch.clamp(anchor_depth(idx), min=1e-3)
-            s, sh = solvers.scale_and_shift(disp[:len(idx)], inv_anchor)
-            inv = disp * s + sh
+            with span("depth.align"):
+                s, sh = solvers.scale_and_shift(disp[:len(idx)], inv_anchor)
+                inv = disp * s + sh
         depth = 1.0 / torch.clamp(inv, min=1e-6)
         depth = torch.where(inv <= 0, torch.full_like(depth, self.max_depth),
                             depth)
-        return torch.clamp(depth, 0.0, self.max_depth).cpu().numpy()
+        depth = torch.clamp(depth, 0.0, self.max_depth)
+        with span("depth.to_host"):
+            out = depth.cpu().numpy()
+            add("bytes", out.nbytes)
+        return out
 
 
 @register_engine("vda")

@@ -31,7 +31,6 @@ import subprocess
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from metric_depth_video_toolbox_tpu_torch.models import diffusion as dif
 from metric_depth_video_toolbox_tpu_torch.models import from_jax
@@ -40,6 +39,7 @@ from metric_depth_video_toolbox_tpu_torch.ops import drift as dr
 from metric_depth_video_toolbox_tpu_torch.ops import image as im
 from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
+from metric_depth_video_toolbox_tpu_torch.utils.timer import span
 
 
 class DiffusionInfillEngine:
@@ -158,7 +158,7 @@ class DiffusionInfillEngine:
         f_dev = torch.as_tensor(np.ascontiguousarray(frames_u8), device=dev)
         m_dev = torch.as_tensor(np.ascontiguousarray(hole_mask), device=dev)
         h, w = f_dev.shape[1:3]
-        with record_function("infill.encode"):
+        with span("infill.encode"):
             fw = self._to_work(f_dev)
             mw = resize_mask(m_dev, self.work_hw)
             masked = fw * (1.0 - mw[..., None])
@@ -190,12 +190,12 @@ class DiffusionInfillEngine:
                 z_, s.to(z_.device), c_,
                 None if ctx is None else ctx.to(z_.device)), zz, c)
 
-        with record_function("infill.sample"):
+        with span("infill.sample"):
             z = dif.sample(denoise, noise.to(dev), self.cfg, cond)
         del cond
         if self.on_latents is not None:
             self.on_latents(z)
-        with record_function("infill.decode_composite"):
+        with span("infill.decode_composite"):
             out = im.resize(self._frames(lambda m, zz: m.decode(zz), z)
                             .float(), (h, w)) * 255.0
             return _paste(out, f_dev, m_dev).cpu().numpy()
@@ -318,7 +318,7 @@ class CausalInfillEngine:
         mono_u8 = (np.zeros_like(frames_u8) if mono_u8 is None
                    else np.ascontiguousarray(mono_u8))
         # the stages carry profiler ranges (free unless a profiler runs)
-        with record_function("infill.encode"):
+        with span("infill.encode"):
             ref = self._encode_ref(mono_u8, tp)
             tl, lh, lw = ref.shape[1:4]
             f_dev = torch.as_tensor(frames_u8, device=self.device)
@@ -337,7 +337,7 @@ class CausalInfillEngine:
             noise = torch.randn((1, tl, lh, lw, self.cfg.z_ch),
                                 generator=self.generator,
                                 device=self.device)
-        with record_function("infill.sample"):
+        with span("infill.sample"):
             z = wan_mod.sample_causal(self.dit, cond, self.cfg,
                                       noise.to(self.device))
         del cond
@@ -346,7 +346,7 @@ class CausalInfillEngine:
 
         out = np.empty((t, h, w, 3), np.uint8)
         cache, s_lat, s_pix = None, 0, 0
-        with record_function("infill.decode_composite"):
+        with span("infill.decode_composite"):
             while s_lat < tl and s_pix < t:
                 y, cache = self.dec.stream(
                     z[:, s_lat:s_lat + self.DEC_SEG], cache)
@@ -452,7 +452,7 @@ def infill_sbs_frames(frames, hole, engine, mono=None, mirror_left=True,
                 engine.chunk
         out_frames[:, :, cols] = result[:, :, ::-1] if flip else result
     if apply_edge_blending:
-        with record_function("infill.halo_blend"):
+        with span("infill.halo_blend"):
             for s in range(0, t, HALO_BATCH):
                 sl = slice(s, s + HALO_BATCH)
                 out_frames[sl] = infill_ops.halo_blend(

@@ -31,6 +31,10 @@ from metric_depth_video_toolbox_tpu_torch.ops import image as im
 from metric_depth_video_toolbox_tpu_torch.ops import infill as infill_ops
 from metric_depth_video_toolbox_tpu_torch.ops import rasterize
 from metric_depth_video_toolbox_tpu_torch.utils.device import resolve_device
+from metric_depth_video_toolbox_tpu_torch.utils.timer import add, span
+
+# the ``pass`` attribute of the ``stereo.sweep`` spans
+_MAIN, _ANCHOR = {"pass": "main"}, {"pass": "anchor"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,30 +171,37 @@ def render_eye(depth, color, k, render_k, transform, eye_shift_m, conv_angle,
     anchors = cfg.place_edge_points and cfg.remove_edges
     fused = cfg.fused_anchor_sweep and anchors and sweep
     if anchors:
-        normals = normals_pre if normals_pre is not None \
-            else geo.normals_from_depth(depth, k)
+        if normals_pre is not None:
+            normals = normals_pre
+        else:
+            with span("stereo.edges", device=dev):
+                normals = geo.normals_from_depth(depth, k)
         normals_t = torch.einsum("nij,nhwj->nhwi", m_eye[:, :3, :3],
                                  normals)
-    if fused:
-        res, a_color, a_extra, a_found = rasterize.stereo_sweep_warp_dual(
-            depth, color, (normals_t + 1.0) / 2.0, k, m_sweep,
-            num_planes=cfg.num_planes, neutralize_rotation=rotate_conv,
-            conv_inv_z=sweep_conv, edge=edge_pre)
-    elif sweep:
-        res = rasterize.stereo_sweep_warp(
-            depth, color, k, m_sweep, num_planes=cfg.num_planes,
-            remove_edges=cfg.remove_edges, neutralize_rotation=rotate_conv,
-            conv_inv_z=sweep_conv, edge=edge_pre)
-    elif cfg.warp_method == "plane_sweep":
-        res = rasterize.plane_sweep_warp(
-            depth, color, k, render_k, m_eye, out_hw,
-            num_planes=cfg.num_planes, remove_edges=cfg.remove_edges,
-            of_by_one=True)
-    else:
-        res = rasterize.forward_warp(
-            depth, color, k, render_k, m_eye, out_hw,
-            subsample=cfg.subsample, remove_edges=cfg.remove_edges,
-            of_by_one=True)
+    with span("stereo.sweep", device=dev, **_MAIN):
+        if fused:
+            res, a_color, a_extra, a_found = \
+                rasterize.stereo_sweep_warp_dual(
+                    depth, color, (normals_t + 1.0) / 2.0, k, m_sweep,
+                    num_planes=cfg.num_planes,
+                    neutralize_rotation=rotate_conv, conv_inv_z=sweep_conv,
+                    edge=edge_pre)
+        elif sweep:
+            res = rasterize.stereo_sweep_warp(
+                depth, color, k, m_sweep, num_planes=cfg.num_planes,
+                remove_edges=cfg.remove_edges,
+                neutralize_rotation=rotate_conv, conv_inv_z=sweep_conv,
+                edge=edge_pre)
+        elif cfg.warp_method == "plane_sweep":
+            res = rasterize.plane_sweep_warp(
+                depth, color, k, render_k, m_eye, out_hw,
+                num_planes=cfg.num_planes, remove_edges=cfg.remove_edges,
+                of_by_one=True)
+        else:
+            res = rasterize.forward_warp(
+                depth, color, k, render_k, m_eye, out_hw,
+                subsample=cfg.subsample, remove_edges=cfg.remove_edges,
+                of_by_one=True)
     hole = ~res.mask
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     image = torch.where(hole[..., None], zero, res.color)
@@ -204,19 +215,21 @@ def render_eye(depth, color, k, render_k, transform, eye_shift_m, conv_angle,
         # warps) splatted as points
         if sweep:
             if not fused:
-                eres = rasterize.stereo_sweep_warp(
-                    torch.where(res.edge_mask, depth, zero),
-                    torch.cat([color, (normals_t + 1.0) / 2.0], dim=-1), k,
-                    m_sweep, num_planes=max(cfg.num_planes // 4, 8),
-                    remove_edges=False, neutralize_rotation=rotate_conv,
-                    conv_inv_z=sweep_conv)
+                with span("stereo.sweep", device=dev, **_ANCHOR):
+                    eres = rasterize.stereo_sweep_warp(
+                        torch.where(res.edge_mask, depth, zero),
+                        torch.cat([color, (normals_t + 1.0) / 2.0], dim=-1),
+                        k, m_sweep, num_planes=max(cfg.num_planes // 4, 8),
+                        remove_edges=False, neutralize_rotation=rotate_conv,
+                        conv_inv_z=sweep_conv)
                 a_color, a_extra = eres.color[..., :3], eres.color[..., 3:]
                 a_found = eres.mask
             a_n = _normalized(a_extra * 2.0 - 1.0)
         else:
-            a_color, a_n, a_found = _splat_anchors(
-                depth, color, normals_t, k, render_k, m_eye, res.edge_mask,
-                out_hw)
+            with span("stereo.sweep", device=dev, **_ANCHOR):
+                a_color, a_n, a_found = _splat_anchors(
+                    depth, color, normals_t, k, render_k, m_eye,
+                    res.edge_mask, out_hw)
         write = (a_found & hole)[..., None]
         image = torch.where(write, a_color, image)
         if not cfg.green_and_black_infill_mask:
@@ -224,18 +237,19 @@ def render_eye(depth, color, k, render_k, transform, eye_shift_m, conv_angle,
 
     if ((cfg.make_infill_mask or cfg.do_basic_infill)
             and not cfg.green_and_black_infill_mask):
-        mask_img = _border_default_normals(mask_img, hole)
-        # pixels still green (no anchor or border normal) or black get
-        # normals diffused in from the seeded ones
-        is_green = torch.all(mask_img == green, dim=-1)
-        is_black = torch.all(mask_img == 0.0, dim=-1)
-        filled = im.inpaint_diffusion_multiscale(
-            mask_img, is_green | is_black,
-            coarse_iters=cfg.inpaint_iters // 3, fine_iters=2, factor=8)
-        mask_img = torch.where(is_green[..., None], filled, mask_img)
-        keep = ~torch.all(mask_img == 0.0, dim=-1)
-        mask_img = im.masked_blur(mask_img, ksize=5, valid_mask=keep)
-        mask_img = torch.where(hole[..., None], mask_img, zero)
+        with span("stereo.mask", device=dev):
+            mask_img = _border_default_normals(mask_img, hole)
+            # pixels still green (no anchor or border normal) or black get
+            # normals diffused in from the seeded ones
+            is_green = torch.all(mask_img == green, dim=-1)
+            is_black = torch.all(mask_img == 0.0, dim=-1)
+            filled = im.inpaint_diffusion_multiscale(
+                mask_img, is_green | is_black,
+                coarse_iters=cfg.inpaint_iters // 3, fine_iters=2, factor=8)
+            mask_img = torch.where(is_green[..., None], filled, mask_img)
+            keep = ~torch.all(mask_img == 0.0, dim=-1)
+            mask_img = im.masked_blur(mask_img, ksize=5, valid_mask=keep)
+            mask_img = torch.where(hole[..., None], mask_img, zero)
 
     if cfg.do_basic_infill:
         image = infill_ops.normal_march_infill(image, hole,
@@ -265,22 +279,25 @@ def stereo_frame(depth_rgb, color, k, render_k, transform, conv_depth,
     """
     b = depth_rgb.shape[0]
     dev = depth_rgb.device
-    scale = master_scale.to(torch.float32)
-    depth = codec.decode_depth_frame(depth_rgb, cfg.max_depth) \
-        * scale[:, None, None]
-    colf = color.to(torch.float32) / 255.0
-    conv_d = conv_depth.to(torch.float32) * scale
-    conv = torch.where(conv_d > 0,
-                       geo.convergence_angle(conv_d,
-                                             cfg.pupillary_distance_m),
-                       torch.zeros_like(conv_d))
+    with span("stereo.decode", device=dev):
+        scale = master_scale.to(torch.float32)
+        depth = codec.decode_depth_frame(depth_rgb, cfg.max_depth) \
+            * scale[:, None, None]
+        colf = color.to(torch.float32) / 255.0
+        conv_d = conv_depth.to(torch.float32) * scale
+        conv = torch.where(conv_d > 0,
+                           geo.convergence_angle(conv_d,
+                                                 cfg.pupillary_distance_m),
+                           torch.zeros_like(conv_d))
     half = cfg.pupillary_distance_m / 2.0
 
     shared = None
     if cfg.warp_method == "sweep" and cfg.remove_edges:
-        shared = (rasterize.cell_edge_mask(geo.unproject_depth(depth, k)),
-                  geo.normals_from_depth(depth, k)
-                  if cfg.place_edge_points else None)
+        with span("stereo.edges", device=dev):
+            shared = (rasterize.cell_edge_mask(geo.unproject_depth(depth,
+                                                                   k)),
+                      geo.normals_from_depth(depth, k)
+                      if cfg.place_edge_points else None)
 
     if cfg.touchly1:
         # mono render over the reversed depth panel
@@ -382,21 +399,25 @@ def stereo_step(cfg, depth_rgb, color, ks, transforms, convs, scales,
     there, with the image, infill mask and (optionally) the RGB-encoded SBS
     depth brought back to the host as uint8 numpy arrays. ``render_ks``
     defaults to ``ks``."""
-    out = stereo_frame(depth_rgb, color, ks,
-                       ks if render_ks is None else render_ks, transforms,
-                       convs, scales, cfg)
-    res = {"image": out["image"]}
-    if cfg.make_infill_mask:
-        res["infill_mask"] = out["infill_mask"]
-    if eq_map is not None:
-        res = {key: _equirect_batch(v, eq_map, cfg.touchly0)
-               for key, v in res.items()}
-    if want_depth:
-        res["sbs_depth"] = torch.cat(
-            [codec.encode_depth_frame(out["depth_left"], cfg.max_depth),
-             codec.encode_depth_frame(out["depth_right"], cfg.max_depth)],
-            dim=2)
-    return {key: v.cpu().numpy() for key, v in res.items()}
+    with span("stereo.batch", frames=depth_rgb.shape[0]):
+        out = stereo_frame(depth_rgb, color, ks,
+                           ks if render_ks is None else render_ks,
+                           transforms, convs, scales, cfg)
+        res = {"image": out["image"]}
+        if cfg.make_infill_mask:
+            res["infill_mask"] = out["infill_mask"]
+        if eq_map is not None:
+            res = {key: _equirect_batch(v, eq_map, cfg.touchly0)
+                   for key, v in res.items()}
+        if want_depth:
+            res["sbs_depth"] = torch.cat(
+                [codec.encode_depth_frame(out["depth_left"], cfg.max_depth),
+                 codec.encode_depth_frame(out["depth_right"],
+                                          cfg.max_depth)], dim=2)
+        with span("stereo.to_host"):
+            res = {key: v.cpu().numpy() for key, v in res.items()}
+            add("bytes", sum(v.nbytes for v in res.values()))
+        return res
 
 
 def render_stereo_video(depth_video, color_video=None, output=None,

@@ -53,6 +53,8 @@ LEFT_OUT_FILES = {
 LEFT_OUT_NAMES = {
     ("io/native.py", "tilepack_rows"): "the host side of the tile-bitpack "
                                        "transfer",
+    ("utils/timer.py", "StageMetrics"): "an exporter nothing read; the "
+                                        "port's spans record the stages",
 }
 # (JAX file, function reaching pl.pallas_call) -> (its CUDA source in
 # csrc/, the port's wrapper)
